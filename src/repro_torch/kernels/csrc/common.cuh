@@ -1,0 +1,48 @@
+// Shared device helpers for the repro_torch kernels.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+template <typename T> __device__ __forceinline__ float to_f(T v);
+template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// Sum over a warp with a fixed xor butterfly: every lane ends with the
+// same total, and the order of the adds never changes from run to run.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Deterministic block sum (blockDim.x a multiple of 32, at most 1024);
+// the result is valid in thread 0. ``sh`` holds 32 floats.
+__device__ __forceinline__ float block_sum(float v, float* sh) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  v = warp_sum(v);
+  if (lane == 0) sh[wid] = v;
+  __syncthreads();
+  const int nw = blockDim.x >> 5;
+  v = (threadIdx.x < nw) ? sh[threadIdx.x] : 0.f;
+  if (wid == 0) v = warp_sum(v);
+  return v;
+}
+
+// Set a kernel's dynamic shared-memory limit when it needs more than the
+// default 48 KB.
+template <typename K>
+__host__ inline cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}

@@ -1,0 +1,174 @@
+"""GQA attention with RoPE (port of ``repro.models.attention``): chunked
+online-softmax for the full forward, and one-token decode against a
+dense or paged KV cache.
+
+Decode caches are updated IN PLACE (the reference returns new arrays):
+a dense cache row or a page is written where it lives, which saves a
+copy of the whole cache per step.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.configs import ModelConfig
+from repro_torch.kernels.ref import NEG_INF, decode_read
+from repro_torch.models.layers import apply_rope, init_dense
+
+
+def init_attention(gen, cfg: ModelConfig, dtype) -> Dict:
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return {
+        "wq": init_dense(gen, d, h * hd, dtype),
+        "wk": init_dense(gen, d, kv * hd, dtype),
+        "wv": init_dense(gen, d, kv * hd, dtype),
+        "wo": init_dense(gen, h * hd, d, dtype),
+    }
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True, chunk: int = 1024) -> torch.Tensor:
+    """Online-softmax attention over KV chunks, never materializing the
+    S×T scores. q: (B,S,H,Dh); k,v: (B,T,H,Dh) -> (B,S,H,Dh)."""
+    b, s, h, dh = q.shape
+    t = k.shape[1]
+    chunk = min(chunk, t)
+    nk = -(-t // chunk)
+    pad = nk * chunk - t
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    qs = (q * (dh ** -0.5)).to(q.dtype)
+    dev = q.device
+    m = torch.full((b, h, s), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, h, s), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, s, h, dh), dtype=torch.float32, device=dev)
+    qpos = torch.arange(s, device=dev)
+    for idx in range(nk):
+        ks = k[:, idx * chunk:(idx + 1) * chunk]
+        vs = v[:, idx * chunk:(idx + 1) * chunk]
+        sc = torch.einsum("bshd,bthd->bhst", qs.to(torch.float32),
+                          ks.to(torch.float32))
+        kpos = idx * chunk + torch.arange(chunk, device=dev)
+        valid = (kpos[None, :] < t)
+        if causal:
+            valid = valid & (qpos[:, None] >= kpos[None, :])
+        sc = torch.where(valid[None, None], sc, torch.full_like(sc, NEG_INF))
+        m_new = torch.maximum(m, torch.amax(sc, dim=-1))
+        p = torch.exp(sc - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + torch.sum(p, dim=-1)
+        pv = torch.einsum("bhst,bthd->bshd", p.to(vs.dtype).to(torch.float32),
+                          vs.to(torch.float32))
+        acc = acc * alpha.transpose(1, 2)[..., None] + pv
+        m = m_new
+    l = torch.clamp_min(l, 1e-30)
+    return (acc / l.transpose(1, 2)[..., None]).to(q.dtype)
+
+
+def attention_apply(x: torch.Tensor, p: Dict, cfg: ModelConfig, ctx,
+                    positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full causal attention for the forward pass. x: (B, S, D)."""
+    b, s, d = x.shape
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    q = ctx.matmul("wq", x, p["wq"]).reshape(b, s, h, hd)
+    k = ctx.matmul("wk", x, p["wk"]).reshape(b, s, kv, hd)
+    v = ctx.matmul("wv", x, p["wv"]).reshape(b, s, kv, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    q = ctx.tap("q", q)
+    k = ctx.tap("k", k)
+    v = ctx.tap("v", v)
+    if kv != h:
+        k = torch.repeat_interleave(k, h // kv, dim=2)
+        v = torch.repeat_interleave(v, h // kv, dim=2)
+    o = chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
+    o = ctx.tap("attn_out", o.reshape(b, s, h * hd))
+    return ctx.matmul("wo", o, p["wo"])
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor        # (..., B, T, KV, Dh)
+    v: torch.Tensor
+
+
+def _qkv_decode(x, p, cfg, ctx, posb):
+    b, tq = x.shape[0], x.shape[1]
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = ctx.matmul("wq", x, p["wq"]).reshape(b, tq, h, hd)
+    knew = ctx.matmul("wk", x, p["wk"]).reshape(b, tq, kv, hd)
+    vnew = ctx.matmul("wv", x, p["wv"]).reshape(b, tq, kv, hd)
+    q = apply_rope(q, posb, cfg.rope_theta)
+    knew = apply_rope(knew, posb, cfg.rope_theta)
+    return q, knew, vnew
+
+
+def attention_decode(x: torch.Tensor, p: Dict, cfg: ModelConfig, ctx,
+                     cache: KVCache, pos: torch.Tensor
+                     ) -> Tuple[torch.Tensor, KVCache]:
+    """Decode x: (B, T, D) at consecutive positions against a dense cache
+    (B, T_max, KV, Dh) in the model dtype. ``pos`` is a () scalar or a
+    (B,) per-slot vector; row b's tokens land at pos[b] .. pos[b]+T-1."""
+    b, tq = x.shape[0], x.shape[1]
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = h // kv
+    offs = torch.arange(tq, dtype=torch.int64, device=x.device)
+    posb = (pos.reshape(-1, 1).to(torch.int64) + offs[None, :]).expand(b, tq)
+    q, knew, vnew = _qkv_decode(x, p, cfg, ctx, posb)
+    rows = torch.arange(b, device=x.device)[:, None].expand(b, tq)
+    cache.k[rows, posb] = knew.to(cache.k.dtype)
+    cache.v[rows, posb] = vnew.to(cache.v.dtype)
+    qg = (q.reshape(b, tq, kv, g, hd).permute(0, 2, 1, 3, 4)
+          .reshape(b, kv, tq * g, hd))
+    o = decode_read(qg, cache.k, cache.v, posb)
+    o = (o.reshape(b, kv, tq, g, hd).permute(0, 2, 1, 3, 4)
+         .reshape(b, tq, h * hd))
+    o = ctx.tap("attn_out", o)
+    return ctx.matmul("wo", o, p["wo"]), cache
+
+
+def attention_decode_paged(x: torch.Tensor, p: Dict, cfg: ModelConfig, ctx,
+                           lp, table: torch.Tensor, pos: torch.Tensor,
+                           write_limit: torch.Tensor):
+    """One-token decode against a paged KV pool (``kvcache.LayerPages``).
+
+    The new token's K/V are quantized with the page's scale and written
+    into the slot's current page; writes at positions >= ``write_limit``
+    are dropped (``kvcache.paged.write_tokens``), so a stale slot never
+    touches a recycled page. The read walks the page table through
+    ``ops.paged_attention``.
+    """
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kvcache.paged import quantize_kv, write_tokens
+
+    b, tq = x.shape[0], x.shape[1]
+    h, hd = cfg.num_heads, cfg.head_dim
+    posb = pos.reshape(-1, 1).to(torch.int64) \
+        + torch.arange(tq, dtype=torch.int64, device=x.device)[None, :]
+    q, knew, vnew = _qkv_decode(x, p, cfg, ctx, posb)
+
+    page, num_pages = lp.page_size, lp.num_pages
+    rows = torch.arange(b, device=x.device)[:, None].expand(b, tq)
+    col = torch.clamp(posb // page, 0, table.shape[1] - 1)
+    pid = torch.where(posb < write_limit.reshape(-1, 1).to(torch.int64),
+                      table.to(torch.int64)[rows, col],
+                      torch.full_like(posb, num_pages))
+    off = posb % page
+    sp = torch.clamp(pid, 0, num_pages - 1)
+    if lp.bits < 16:
+        kq = quantize_kv(knew, lp.k_scale[sp], lp.bits)
+        vq = quantize_kv(vnew, lp.v_scale[sp], lp.bits)
+    else:
+        kq = knew.to(lp.k.dtype)
+        vq = vnew.to(lp.v.dtype)
+    write_tokens(lp, pid, off, kq, vq)
+    outs = [kops.paged_attention(q[:, j:j + 1], lp.k, lp.v, table, posb[:, j],
+                                 lp.k_scale, lp.v_scale, lp.bits)
+            for j in range(tq)]
+    o = outs[0] if tq == 1 else torch.stack(outs, dim=1)
+    o = o.reshape(b, tq, h * hd).to(x.dtype)
+    o = ctx.tap("attn_out", o)
+    return ctx.matmul("wo", o, p["wo"]), lp
