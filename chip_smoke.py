@@ -5,14 +5,18 @@
 
 Phases, in order; any failure exits non-zero:
   1. print the card and its power limit; build the CUDA kernels from
-     src/repro_torch/kernels/csrc with nvcc for sm_90a;
+     src/repro_torch/kernels/csrc with nvcc for sm_90a (one nvcc per
+     source, all started together);
   2. hold every kernel against its plain PyTorch version on the card at
-     the main path's shapes, and time kernel, plain version and the one
+     the main paths' shapes, and time kernel, plain version and the one
      PyTorch library call computing the same function (CUDA events);
-  3. drive the main path at the full width of internlm2_1_8b: seeded
-     init -> FIT report -> W4/W8 bit allocation -> packed QTensors ->
-     FIT KV widths -> paged serving of Poisson requests (greedy), with
-     every kernel launch counter reset just before and read just after;
+  3a. the packed paged decode of the internlm2_1_8b, olmoe_1b_7b and
+     deepseek_moe_16b smoke configs on the card against the CPU plain path;
+  3b. drive each main path at full width — internlm2_1_8b (dense) and
+     olmoe_1b_7b (MoE, grouped_qmm) — seeded init -> FIT report -> W4/W8
+     bit allocation -> packed QTensors -> FIT KV widths -> paged serving
+     of Poisson requests (greedy), with every kernel launch counter reset
+     just before each path and read just after its serving run;
   4. print the kernels line and the main-path metrics;
   5. print {"ok": true, "device": {...}} as the last line.
 
@@ -22,6 +26,8 @@ Imports torch and the port only.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -158,6 +164,87 @@ def check_qmm(timer, gen, rows):
         del w
 
 
+GROUPED_SHAPES = [("w_up/w_gate", 2048, 1024), ("w_down", 1024, 2048)]
+GROUPED_CAPS = (1, 5, 20)     # decode/prefill capacity; ragged; report batch
+N_EXPERTS = 64
+
+
+def _grouped_counts(gen, s: int, c: int) -> torch.Tensor:
+    """Ragged per-segment row counts with empty segments: at C = 1 the 32
+    of 64 experts that 4 decode slots x top-8 can reach at most; else
+    0..C with every fourth segment empty."""
+    if c == 1:
+        cnt = torch.zeros(s, dtype=torch.int32, device="cuda")
+        cnt[torch.randperm(s, generator=gen, device="cuda")[:32]] = 1
+        return cnt
+    cnt = torch.randint(0, c + 1, (s,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    cnt[::4] = 0
+    return cnt
+
+
+def check_grouped_qmm(timer, gen, rows):
+    from repro_torch.kernels import grouped_qmm as kmod, qmm as kqmm, ref
+    from repro_torch.qtensor import expert_slice, quantize_experts
+
+    s = N_EXPERTS
+    for name, k, n in GROUPED_SHAPES:
+        w = torch.randn((s, k, n), generator=gen, device="cuda") / k ** 0.5
+        for bits in (8, 6, 4, 3):
+            qt = quantize_experts(w, bits, group_size=128)
+            wd = qt.dequantize(torch.bfloat16)
+            for c in GROUPED_CAPS:
+                xq = torch.randint(-127, 128, (s, c, k), generator=gen,
+                                   device="cuda", dtype=torch.int32).to(torch.int8)
+                xs = torch.rand((s, c, 1), generator=gen, device="cuda") * 0.02 + 1e-3
+                cnt = _grouped_counts(gen, s, c)
+                ids = torch.randperm(s, generator=gen, device="cuda").to(torch.int32)
+                y, dots = kmod.grouped_qmm(xq, qt, xs, cnt, ids, return_dots=True)
+                want_dots = ref.grouped_qmm_group_dots(xq, qt, ids)
+                want = ref.grouped_qmm(xq, qt, xs, cnt, ids)
+                torch.cuda.synchronize()
+                tag = f"grouped_qmm {name} W{bits} C={c}"
+                valid = torch.arange(c, device="cuda")[None, :] < cnt[:, None]
+                vd = valid[:, None, :, None].expand_as(dots)
+                if not torch.equal(dots[vd], want_dots[vd]):
+                    raise AssertionError(f"{tag}: int32 group dots differ from "
+                                         "the plain version")
+                if bool((y[~valid] != 0).any()):
+                    raise AssertionError(f"{tag}: a row past its count is not 0.0")
+                scale = want.abs().max().item()
+                err = (y - want).abs().max().item()
+                if not torch.allclose(y, want, rtol=1e-5, atol=1e-5 * scale):
+                    raise AssertionError(f"{tag}: max err {err} (max|y| {scale})")
+                cnt_h, ids_h = cnt.tolist(), ids.tolist()
+                for si in range(s):          # the per-expert qmm kernel loop
+                    if cnt_h[si]:
+                        loop = kqmm.qmm(xq[si], expert_slice(qt, ids_h[si]),
+                                        xs[si, :, 0])[:cnt_h[si]]
+                        if not torch.equal(y[si, :cnt_h[si]], loop):
+                            raise AssertionError(f"{tag}: segment {si} differs "
+                                                 "from the qmm kernel")
+                active = [si for si in range(s) if cnt_h[si]]
+                wsel = wd[ids[active].long()].contiguous()        # (A, K, N)
+                xb = (xq[active].float() * xs[active]).to(torch.bfloat16)
+                groups = k // 128
+                nbytes = (len(active) * (qt.data[0].numel() + groups * n * 4)
+                          + s * c * k + s * c * 4 + s * c * n * 4 + 2 * s * 4)
+                b_ms, b_by = bound_ms(nbytes, 2.0 * sum(cnt_h) * k * n, INT8_OPS)
+                row = {"kernel": "grouped_qmm",
+                       "shape": f"{name} {k}x{n} W{bits} C={c}", "bits": bits,
+                       "c": c, "active_experts": len(active),
+                       "rows": sum(cnt_h), "max_abs_err": err,
+                       "ms": timer(lambda: kmod.grouped_qmm(xq, qt, xs, cnt, ids)),
+                       "plain_ms": timer(lambda: ref.grouped_qmm(xq, qt, xs, cnt, ids)),
+                       "library_ms": timer(lambda: torch.bmm(xb, wsel)),
+                       "bound_ms": b_ms, "bound_by": b_by}
+                rows.append(row)
+                log(json.dumps(row))
+                del xq, xs, y, dots, want_dots, want, wsel, xb
+            del qt, wd
+        del w
+
+
 def _random_pages(gen, bits, p, page, kvh, dh):
     from repro_torch.qtensor import pack, packed_size, qmax_for_bits
 
@@ -284,32 +371,42 @@ def main() -> int:
     t0 = time.perf_counter()
     check_ef_sqnorm(timer, gen, rows)
     check_paged_attention(timer, gen, rows)
+    check_paged_attention(timer, gen, rows, kvh=16, g=1)      # olmoe's GQA
     check_qmm(timer, gen, rows)
+    check_grouped_qmm(timer, gen, rows)
     log(f"phase 2: {len(rows)} kernel checks passed in "
         f"{time.perf_counter() - t0:.1f} s")
     result = {"card": card, "kind": kind, "kernel_checks": rows}
 
     if not args.kernels_only:
-        result["small_reference_err"] = check_small_reference()
+        result["small_reference_err"] = errs = {
+            arch: check_small_reference(arch) for arch in SMOKE_ARCHS}
         log(f"phase 3a: smoke-config decode on the card agrees with the CPU "
-            f"plain path (max err {result['small_reference_err']:.3g})")
-        t0 = time.perf_counter()
-        result["main_path"] = mp = main_path()
-        log(f"phase 3: main path in {time.perf_counter() - t0:.1f} s")
-        log(json.dumps({"main_path": mp}))
+            f"plain path (max err {errs})")
+        result["main_paths"] = {}
+        for arch, microbatch in MAIN_PATHS:
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            result["main_paths"][arch] = mp = main_path(arch, microbatch)
+            log(f"phase 3b: {arch} main path in {time.perf_counter() - t0:.1f} s, "
+                f"peak device memory {mp['peak_mem_gb']:.1f} GB")
+            log(json.dumps({"main_path": mp}))
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))
     if args.kernels_only:
         return 0
-    mp = result["main_path"]
-    log(json.dumps({"kernels": kernels_line(rows, mp)}))
-    log(f"[{card}] report {mp['report_s']:.2f} s; packed weights "
-        f"{mp['packed_bytes'] / 1e9:.3f} GB vs FIT-predicted "
-        f"{mp['predicted_bytes'] / 1e9:.3f} GB; decode "
-        f"{mp['decode_tokens_per_s']:.1f} tok/s; TTFT p50 {mp['ttft_p50']:.3f} s "
-        f"p95 {mp['ttft_p95']:.3f} s")
+    mps = result["main_paths"]
+    log(json.dumps({"kernels": kernels_line(rows, mps)}))
+    for arch, mp in mps.items():
+        log(f"[{card}] {arch}: report {mp['report_s']:.2f} s; packed weights "
+            f"{mp['packed_bytes'] / 1e9:.3f} GB vs FIT-predicted "
+            f"{mp['predicted_bytes'] / 1e9:.3f} GB; decode "
+            f"{mp['decode_tokens_per_s']:.1f} tok/s; TTFT p50 "
+            f"{mp['ttft_p50']:.3f} s p95 {mp['ttft_p95']:.3f} s; peak "
+            f"{mp['peak_mem_gb']:.1f} GB")
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -326,18 +423,26 @@ KERNELS = [
     ("paged_attention", "src/repro_torch/kernels/csrc/paged_attention.cu",
      "src/repro/kernels/paged_attention.py:90",
      "B=4 KV=8 G=2 Dh=128 page=16 W8"),
+    ("grouped_qmm", "src/repro_torch/kernels/csrc/grouped_qmm.cu",
+     "src/repro/kernels/grouped_qmm.py:125", "w_up/w_gate 2048x1024 W4 C=1"),
 ]
+SMOKE_ARCHS = ("internlm2_1_8b", "olmoe_1b_7b", "deepseek_moe_16b")
+# full-width main paths (arch, report microbatch), driven in this order
+MAIN_PATHS = (("internlm2_1_8b", 4), ("olmoe_1b_7b", 2))
+# the kernels each family's main path must launch
+PATH_KERNELS = {"dense": ("ef_sqnorm", "qmm", "paged_attention"),
+                "moe": ("ef_sqnorm", "qmm", "paged_attention", "grouped_qmm")}
 
 
 def _kernel_modules():
-    from repro_torch.kernels import ef_sqnorm, paged_attention, qmm
+    from repro_torch.kernels import ef_sqnorm, grouped_qmm, paged_attention, qmm
     return {"ef_sqnorm": ef_sqnorm, "qmm": qmm,
-            "paged_attention": paged_attention}
+            "paged_attention": paged_attention, "grouped_qmm": grouped_qmm}
 
 
-def check_small_reference():
+def check_small_reference(arch: str) -> float:
     """The packed paged decode path on the card against the same path on
-    the CPU (plain versions) at the smoke config: per-step logits agree.
+    the CPU (plain versions) at a smoke config: per-step logits agree.
     Tolerance 2e-2 absolute on logits of size ~1: fp32 sums run in
     another order, so a value at a rounding boundary may land one grid
     step apart in an activation's per-row int8 grid or in a 4-bit KV
@@ -349,7 +454,7 @@ def check_small_reference():
     from repro_torch.models.transformer import init_params
     from repro_torch.serve.quantized import quantize_params
 
-    cfg = smoke_config("internlm2_1_8b")
+    cfg = smoke_config(arch)
     out = {}
     for dev in ("cpu", "cuda"):
         params = init_params(cfg, seed=0, device="cpu")
@@ -359,7 +464,8 @@ def check_small_reference():
         st.paged.table.copy_(torch.arange(8, dtype=torch.int32).reshape(2, 4))
         st.paged.write_limit.fill_(32)
         ctx = DequantContext(None, cfg.param_dtype, int8_compute=True)
-        toks = torch.arange(2 * 12, dtype=torch.int32).reshape(2, 12) * 7 % 384
+        toks = (torch.arange(2 * 12, dtype=torch.int32).reshape(2, 12) * 7
+                % cfg.vocab_size)
         logits = []
         with torch.no_grad():
             for i in range(12):
@@ -368,11 +474,13 @@ def check_small_reference():
         out[dev] = torch.stack(logits)
     err = (out["cpu"] - out["cuda"]).abs().max().item()
     if not (torch.isfinite(out["cuda"]).all() and err <= 2e-2):
-        raise AssertionError(f"smoke decode: card vs CPU max err {err}")
+        raise AssertionError(f"{arch} smoke decode: card vs CPU max err {err}")
     return err
 
 
-def main_path():
+def main_path(arch: str, microbatch: int):
+    """One full-width main path; returns its metrics. Every kernel counter
+    is set to 0 at the start and read right after the serving run."""
     from repro_torch.configs import get_config
     from repro_torch.core.report import build_report
     from repro_torch.data.synthetic import LMStreamConfig, lm_batches
@@ -385,9 +493,10 @@ def main_path():
     from repro_torch.serve.loadgen import poisson_requests
     from repro_torch.serve.quantized import bit_config_from_report, quantize_params
 
-    cfg = get_config("internlm2_1_8b")
-    res = {"layers": cfg.num_layers}
+    cfg = get_config(arch)
+    res = {"arch": arch, "layers": cfg.num_layers, "microbatch": microbatch}
     mods = _kernel_modules()
+    torch.cuda.reset_peak_memory_stats()
     for mod in mods.values():
         mod.launches = 0
 
@@ -402,9 +511,11 @@ def main_path():
     t0 = time.perf_counter()
     report = build_report(lambda p, b: loss_fn(p, b, cfg), tap_loss,
                           lambda b: tap_shapes(params, b), act_fn, params,
-                          batches, microbatch=4, tolerance=None, max_batches=2)
+                          batches, microbatch=microbatch, tolerance=None,
+                          max_batches=2)
     torch.cuda.synchronize()
     res["report_s"] = time.perf_counter() - t0
+    res["report_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     traces = list(report.weight_traces.values()) + list(report.act_traces.values())
     if not all(math.isfinite(t) and t > 0 for t in traces):
         raise AssertionError("non-finite or non-positive EF trace")
@@ -451,16 +562,24 @@ def main_path():
                                  f"{r.max_new_tokens} tokens")
         if not ((r.output_tokens >= 0) & (r.output_tokens < cfg.vocab_size)).all():
             raise AssertionError(f"request {r.id}: token out of the vocab")
-    for name, n in res["launches"].items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched by the main path")
-    # one request served alone equals the same request in the batch
-    for rid in (0, 5):
-        alone = [r for r in requests() if r.id == rid]
-        alone[0].arrival_time = 0.0
-        got, _ = engine.run(alone)
-        if not (got[0].output_tokens == fin[rid].output_tokens).all():
-            raise AssertionError(f"request {rid}: alone != batched")
+    for name in PATH_KERNELS[cfg.family]:
+        if res["launches"][name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 f"{arch} main path")
+    if cfg.family == "moe":
+        # capacity couples a token to its batch-mates, so alone == batched
+        # does not hold for MoE (nor in the reference); its contract is
+        # grouped == dense dispatch, bit for bit
+        res["grouped_equals_dense"] = check_grouped_equals_dense(
+            qparams, cfg, ecfg, kv_bits, report.act_ranges)
+    else:
+        # one request served alone equals the same request in the batch
+        for rid in (0, 5):
+            alone = [r for r in requests() if r.id == rid]
+            alone[0].arrival_time = 0.0
+            got, _ = engine.run(alone)
+            if not (got[0].output_tokens == fin[rid].output_tokens).all():
+                raise AssertionError(f"request {rid}: alone != batched")
     res["profile"] = profile_serving(engine, cfg)
     s = metrics.summary()
     res.update({k: s[k] for k in ("decode_tokens_per_s", "prefill_tokens_per_s",
@@ -469,6 +588,29 @@ def main_path():
                                   "kv_peak_bytes", "kv_pool_bytes")})
     res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return res
+
+
+def check_grouped_equals_dense(qparams, cfg, ecfg, kv_bits, ranges) -> dict:
+    """Two short requests served with moe_dispatch="grouped" (one
+    grouped_qmm per projection) and "dense" (the per-expert qmm kernel
+    loop): identical greedy token streams."""
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.loadgen import poisson_requests
+
+    outs = {}
+    for dispatch in ("grouped", "dense"):
+        reqs = poisson_requests(cfg, 2, rate=1.0, prompt_len=(8, 16),
+                                gen_len=8, seed=3)
+        for r in reqs:
+            r.arrival_time = 0.0
+        eng = Engine(qparams, cfg, dataclasses.replace(ecfg, moe_dispatch=dispatch),
+                     kv_bits=kv_bits, kv_ranges=ranges)
+        fin, _ = eng.run(reqs)
+        outs[dispatch] = [r.output_tokens.tolist() for r in fin]
+    if outs["grouped"] != outs["dense"]:
+        raise AssertionError(f"grouped != dense token streams: {outs}")
+    return {"requests": len(outs["grouped"]),
+            "tokens": sum(len(t) for t in outs["grouped"])}
 
 
 def profile_serving(engine, cfg, n_top: int = 10):
@@ -518,12 +660,14 @@ def profile_serving(engine, cfg, n_top: int = 10):
                              "device_ms": dev_us(e) / 1e3} for e in top]}
 
 
-def kernels_line(rows, mp):
+def kernels_line(rows, mps):
+    """One entry per kernel; ``launches`` sums the main paths' runs."""
     out = []
     for name, source, replaces, shape in KERNELS:
         row = next(r for r in rows if r["kernel"] == name and r["shape"] == shape)
+        launches = sum(mp["launches"][name] for mp in mps.values())
         out.append({"name": name, "route": "cuda", "source": source,
-                    "replaces": replaces, "launches": mp["launches"][name],
+                    "replaces": replaces, "launches": launches,
                     "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                     "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

@@ -66,7 +66,7 @@ class ModelConfig:
         return {"bfloat16": torch.bfloat16, "float32": torch.float32}[self.dtype]
 
 
-ARCH_IDS = ["internlm2_1_8b"]
+ARCH_IDS = ["internlm2_1_8b", "olmoe_1b_7b", "deepseek_moe_16b"]
 
 
 def get_config(name: str) -> ModelConfig:

@@ -33,6 +33,8 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "ef_sqnorm_launch": [_P, _I, _L, _L, _L, _P, _P, _P],
     "qmm_launch": [_P, _P, _P, _P, _P, _P, _I, _L, _L, _L, _L, _P],
+    "grouped_qmm_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                           _L, _L, _L, _L, _L, _L, _L, _P],
     "paged_attention_launch": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P,
                                _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }

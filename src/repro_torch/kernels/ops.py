@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.ef_sqnorm import ef_sqnorm as _ef_sqnorm
+from repro_torch.kernels.grouped_qmm import grouped_qmm as _grouped_qmm
 from repro_torch.kernels.paged_attention import (
     paged_attention as _paged_attention)
 from repro_torch.kernels.qmm import qmm as _qmm
@@ -26,6 +27,17 @@ def qmm(x_q: torch.Tensor, w, x_scale, out_dtype=torch.float32) -> torch.Tensor:
     if xs.numel() == 1:
         xs = xs.reshape(1).expand(x_q.shape[0])
     return _qmm(x_q, w, xs.reshape(-1)).to(out_dtype)
+
+
+def grouped_qmm(x_q: torch.Tensor, w, x_scale: torch.Tensor,
+                counts: torch.Tensor, expert_ids=None,
+                out_dtype=torch.float32) -> torch.Tensor:
+    """(S, C, K) int8 capacity-sorted MoE segments x a packed
+    ``quantize_experts`` stack (E, K, N) with (S, C, 1) fp32 row scales;
+    counts: (S,) valid rows per segment, expert_ids: (S,) expert of each
+    segment (default ``arange(S)``). Rows past a segment's count come
+    back exactly 0.0; the counts stay on the device."""
+    return _grouped_qmm(x_q, w, x_scale, counts, expert_ids).to(out_dtype)
 
 
 def paged_attention(q, k_pages, v_pages, table, pos, k_scale=None,

@@ -28,18 +28,16 @@ _MT, _WARPS = 4, 4             # activation rows per warp, warps per block (qmm.
 launches = 0
 
 
-def _validate(name: str, x_q, w_data, w_scale, bits: int, k: int) -> int:
-    """Shape/numerics validation shared by both routes; returns G."""
-    m, k_in = x_q.shape
-    if k_in != k:
-        raise ValueError(f"{name}: x_q {tuple(x_q.shape)} does not match k={k}")
-    kp, n = w_data.shape
+def validate_group(name: str, payload_shape, n_groups: int, bits: int,
+                   k: int) -> int:
+    """Checks of one packed (K*, N) payload with ``n_groups`` scale
+    groups along K, shared with ``grouped_qmm``; returns G."""
+    kp = payload_shape[0]
     if kp != packed_size(k, bits):
         raise ValueError(
-            f"{name}: packed payload {tuple(w_data.shape)} inconsistent with "
+            f"{name}: packed payload {tuple(payload_shape)} inconsistent with "
             f"logical K={k} at {bits} bits "
             f"(expected {packed_size(k, bits)} rows)")
-    n_groups = w_scale.shape[0]
     if k % n_groups:
         raise ValueError(f"{name}: {n_groups} scale groups do not divide K={k}")
     bk = k // n_groups
@@ -49,6 +47,13 @@ def _validate(name: str, x_q, w_data, w_scale, bits: int, k: int) -> int:
             "quantize with a group size that is a multiple of the pack unit")
     require_group_dot_safe(bits, 8, bk, where=name)
     return n_groups
+
+
+def _validate(name: str, x_q, w_data, w_scale, bits: int, k: int) -> int:
+    """Shape/numerics validation shared by both routes; returns G."""
+    if x_q.ndim != 2 or x_q.shape[1] != k:
+        raise ValueError(f"{name}: x_q {tuple(x_q.shape)} does not match k={k}")
+    return validate_group(name, w_data.shape, w_scale.shape[0], bits, k)
 
 
 def smem_bytes(k: int, groups: int) -> int:

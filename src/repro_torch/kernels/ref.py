@@ -43,12 +43,68 @@ def qmm_group_products(x_q: torch.Tensor, w) -> torch.Tensor:
     return qmm_group_dots(x_q, w).to(torch.float32) * ws[:, None, :]
 
 
+def fold_groups(terms: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over the group axis ``dim`` as a left fold in group order
+    0..G-1 — the order of the CUDA kernels' fold, and one that does not
+    depend on the layout around the axis."""
+    parts = terms.unbind(dim)
+    acc = parts[0]
+    for t in parts[1:]:
+        acc = acc + t
+    return acc
+
+
 def qmm(x_q: torch.Tensor, w, x_scale, out_dtype=torch.float32) -> torch.Tensor:
     """Grouped-scale quantized matmul W{8,6,4,3}A8: the group products
-    summed over the group axis, times the per-row activation scales."""
-    y = torch.sum(qmm_group_products(x_q, w), dim=0)
+    folded over the group axis, times the per-row activation scales."""
+    y = fold_groups(qmm_group_products(x_q, w), 0)
     xs = torch.as_tensor(x_scale, dtype=torch.float32, device=y.device)
     return (y * xs).to(out_dtype)
+
+
+def _expert_ids(x_q: torch.Tensor, expert_ids) -> torch.Tensor:
+    if expert_ids is None:
+        return torch.arange(x_q.shape[0], device=x_q.device)
+    return expert_ids.to(device=x_q.device, dtype=torch.int64)
+
+
+def grouped_qmm_group_dots(x_q: torch.Tensor, w,
+                           expert_ids=None) -> torch.Tensor:
+    """Exact per-group integer dots (S, G, C, N) of (S, C, K) int8
+    segments against their experts of a (E, K, N) QTensor stack, every
+    row (past ``counts`` too); int64, formed as in ``qmm_group_dots``."""
+    _, k, n = w.shape
+    s, c = x_q.shape[0], x_q.shape[1]
+    g = w.scale.shape[w.axis]
+    gs = k // g
+    wsel = w.unpack()[_expert_ids(x_q, expert_ids)]   # (S, K, N) int8
+    dt = torch.int32 if x_q.device.type == "cpu" else torch.float64
+    xg = x_q.to(dt).reshape(s, c, g, gs).transpose(1, 2).reshape(s * g, c, gs)
+    wg = wsel.to(dt).reshape(s * g, gs, n)
+    return torch.bmm(xg, wg).reshape(s, g, c, n).to(torch.int64)
+
+
+def grouped_qmm(x_q: torch.Tensor, w, x_scale: torch.Tensor,
+                counts: torch.Tensor, expert_ids=None,
+                out_dtype=torch.float32) -> torch.Tensor:
+    """Grouped ragged quantized matmul: every MoE expert's projection in
+    one call. x_q: (S, C, K) int8 segments; ``w``: a ``quantize_experts``
+    stack, logical (E, K, N) with per-expert scales (E, G, N); x_scale: (S, C, 1)
+    fp32; counts: (S,) valid rows per segment; expert_ids: (S,) expert
+    of each segment (default ``arange(S)``). Rows >= counts[s] are
+    exactly 0.0, and segment s's valid rows equal
+    ``qmm(x_q[s], expert_slice(w, ids[s]), x_scale[s])`` bit for bit
+    (same int32 dots, same scale products, same group fold)."""
+    s, c = x_q.shape[0], x_q.shape[1]
+    ids = _expert_ids(x_q, expert_ids)
+    wssel = w.scale[ids]                                    # (S, G, N)
+    terms = (grouped_qmm_group_dots(x_q, w, ids).to(torch.float32)
+             * wssel[:, :, None, :])                        # (S, G, C, N)
+    y = fold_groups(terms, 1)
+    y = y * torch.as_tensor(x_scale, dtype=torch.float32, device=y.device)
+    rows = torch.arange(c, device=y.device)[None, :, None]
+    cnt = counts.to(device=y.device)[:, None, None]
+    return torch.where(rows < cnt, y, torch.zeros_like(y)).to(out_dtype)
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,

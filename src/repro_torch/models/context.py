@@ -11,10 +11,11 @@ activation site ``ctx.tap(name, a)``; names are scoped with
   * ``DequantContext``  — packed QTensor weights: ``matmul`` quantizes the
                           activation per row and runs the ``qmm`` kernel
                           (``int8_compute=True``) or dequantizes the weight
-                          at the point of use
+                          at the point of use; ``expert_matmul`` runs packed
+                          MoE expert stacks through ``grouped_qmm``
 
-The MoE, QAT, legacy int8 and tensor-parallel routes of the reference
-are not ported yet.
+The QAT, legacy int8 and tensor-parallel routes of the reference are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from typing import Dict, List, Mapping, Optional
 
 import torch
 
-from repro_torch.qtensor import QTensor
+from repro_torch.qtensor import QTensor, expert_slice
 
 
 class Context:
@@ -48,6 +49,16 @@ class Context:
 
     def matmul(self, name: str, x: torch.Tensor, w) -> torch.Tensor:
         return x @ self.qw(name, w)
+
+    def expert_matmul(self, name: str, buf: torch.Tensor, w,
+                      counts: torch.Tensor) -> torch.Tensor:
+        """The MoE expert-stack interception point. buf: (E, C, D)
+        capacity-sorted segments (rows past ``counts[e]`` are zero); w:
+        (E, D, F) stacked expert weights; counts: (E,) int32. Returns
+        (E, C, F) with rows past the counts still zero. Default: the
+        batched fp einsum over ``qw`` (zero rows in, zero rows out)."""
+        del counts
+        return torch.einsum("ecd,edf->ecf", buf, self.qw(name, w))
 
     def tap(self, name: str, a: torch.Tensor) -> torch.Tensor:
         return a
@@ -88,14 +99,19 @@ class DequantContext(Context):
     """
 
     def __init__(self, scales: Optional[Mapping[str, torch.Tensor]], dtype,
-                 int8_compute: bool = False, scope_prefix: str = ""):
+                 int8_compute: bool = False, moe_dispatch: str = "grouped",
+                 scope_prefix: str = ""):
         super().__init__(scope_prefix)
         if scales:
             raise NotImplementedError(
                 "legacy int8 leaves with path-keyed scales are not ported; "
                 "use packed QTensor storage (serve.quantized.quantize_params)")
+        if moe_dispatch not in ("grouped", "dense", "einsum"):
+            raise ValueError(f"moe_dispatch must be grouped|dense|einsum, "
+                             f"got {moe_dispatch!r}")
         self.dtype = dtype
         self.int8_compute = int8_compute
+        self.moe_dispatch = moe_dispatch
 
     @staticmethod
     def _rowquant(x2: torch.Tensor):
@@ -121,3 +137,29 @@ class DequantContext(Context):
             y = kops.qmm(xq, w, xs, out_dtype=torch.float32)
             return y.to(self.dtype).reshape(lead + (w.shape[-1],))
         return x @ w
+
+    def expert_matmul(self, name: str, buf: torch.Tensor, w,
+                      counts: torch.Tensor) -> torch.Tensor:
+        """Packed expert stacks go to the grouped ragged kernel
+        (``moe_dispatch="grouped"``) or to the per-expert ``qmm`` loop
+        (``"dense"``, the bit-identity oracle, masked to exact 0.0 past
+        the counts); fp weights, shared-scale stacks and ``"einsum"``
+        take the fp-dequant einsum. Rows are quantized with the same
+        per-row scales as ``matmul``."""
+        from repro_torch.kernels import ops as kops
+        if (not isinstance(w, QTensor) or not self.int8_compute
+                or len(w.shape) != 3 or self.moe_dispatch == "einsum"
+                or w.scale.shape[0] != w.shape[0]):
+            return super().expert_matmul(name, buf, w, counts)
+        e, c, d = buf.shape
+        xq, xs = self._rowquant(buf.reshape(-1, d).to(torch.float32))
+        xq, xs = xq.reshape(e, c, d), xs.reshape(e, c, 1)
+        cnt = counts.to(torch.int32)
+        if self.moe_dispatch == "dense":
+            y = torch.stack([kops.qmm(xq[i], expert_slice(w, i), xs[i])
+                             for i in range(e)])
+            rows = torch.arange(c, device=y.device)[None, :, None]
+            y = torch.where(rows < cnt[:, None, None], y, torch.zeros_like(y))
+        else:
+            y = kops.grouped_qmm(xq, w, xs, cnt)
+        return y.to(self.dtype)

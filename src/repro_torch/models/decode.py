@@ -1,5 +1,5 @@
 """Decode-state containers and one-token decode steps (port of
-``repro.models.decode``), dense family.
+``repro.models.decode``), dense and MoE families.
 
 Dense state: a KVCache stacked (L, B, T, KV, Dh) plus positions; paged
 state: per-layer page pools + page table (``kvcache.PagedState``).
@@ -17,7 +17,7 @@ from repro_torch.models.attention import KVCache
 from repro_torch.models.context import Context
 from repro_torch.models.transformer import (
     _attn_mlp_block_decode, _attn_mlp_block_decode_paged, logits_from_hidden,
-    require_dense)
+    require_ported_family)
 
 
 class DecodeState(NamedTuple):
@@ -29,7 +29,7 @@ class DecodeState(NamedTuple):
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       per_slot_pos: bool = False,
                       device=None) -> DecodeState:
-    require_dense(cfg)
+    require_ported_family(cfg)
     dev = torch.device(device) if device is not None else torch.device("cpu")
     pshape = (batch,) if per_slot_pos else ()
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
@@ -43,7 +43,7 @@ def init_paged_decode_state(cfg: ModelConfig, pcfg, batch: int,
                             ranges: Optional[Mapping] = None,
                             device=None) -> DecodeState:
     from repro_torch.kvcache.paged import init_paged_kv
-    require_dense(cfg)
+    require_ported_family(cfg)
     dev = torch.device(device) if device is not None else torch.device("cpu")
     return DecodeState(pos=torch.zeros((batch,), dtype=torch.int32, device=dev),
                        paged=init_paged_kv(cfg, pcfg, batch, ranges, device=dev))
@@ -54,7 +54,7 @@ def decode_step(params, state: DecodeState, tokens: torch.Tensor,
                 ) -> Tuple[torch.Tensor, DecodeState]:
     """Decode tokens (B, T) -> logits (B, T, V). ``ctx`` hooks weight
     access (e.g. ``DequantContext`` for packed serving)."""
-    require_dense(cfg)
+    require_ported_family(cfg)
     ctx = ctx or Context()
     x = params["embed"][tokens.long()].to(cfg.param_dtype)
     tq = x.shape[1]

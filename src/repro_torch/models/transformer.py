@@ -1,13 +1,14 @@
-"""Decoder-only LM, dense family (port of ``repro.models.transformer``).
+"""Decoder-only LM, dense and MoE families (port of
+``repro.models.transformer``).
 
 Always the unrolled layout: one parameter subtree per layer under
 ``layers/<i>``, the block paths FIT, the bit allocator and the QTensor
-materializer key on. The MoE, ssm, hybrid, audio and vlm families are
-not ported yet.
+materializer key on. A MoE block holds a ``moe`` subtree in place of
+``mlp``. The ssm, hybrid, audio and vlm families are not ported yet.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -17,6 +18,9 @@ from repro_torch.models.attention import (
     attention_apply, attention_decode, attention_decode_paged, init_attention)
 from repro_torch.models.context import Context
 from repro_torch.models.layers import init_mlp, init_norm, mlp_apply, rmsnorm
+from repro_torch.models.moe import init_moe, moe_apply
+
+FAMILIES = ("dense", "moe")
 
 
 def vocab_padded(cfg: ModelConfig, multiple: int = 16) -> int:
@@ -24,17 +28,21 @@ def vocab_padded(cfg: ModelConfig, multiple: int = 16) -> int:
     return ((v + multiple - 1) // multiple) * multiple
 
 
-def require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def require_ported_family(cfg: ModelConfig) -> None:
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)")
+            f"family {cfg.family!r} is not ported yet ({'|'.join(FAMILIES)})")
 
 
 def _init_block(gen, cfg: ModelConfig, dtype, device) -> Dict:
-    return {"ln1": init_norm(cfg.d_model, dtype, device),
-            "attn": init_attention(gen, cfg, dtype),
-            "ln2": init_norm(cfg.d_model, dtype, device),
-            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype)}
+    p = {"ln1": init_norm(cfg.d_model, dtype, device),
+         "attn": init_attention(gen, cfg, dtype),
+         "ln2": init_norm(cfg.d_model, dtype, device)}
+    if cfg.family == "moe":
+        p["moe"] = init_moe(gen, cfg, dtype)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype)
+    return p
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
@@ -42,7 +50,7 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     """Seeded random parameters on ``device`` (default: the GPU). The
     numbers differ from the reference's init; tests that compare the
     two convert the reference's params with ``convert.params_from_numpy``."""
-    require_dense(cfg)
+    require_ported_family(cfg)
     dev = resolve_device(device)
     gen = generator(dev, seed)
     dtype = cfg.param_dtype
@@ -61,13 +69,21 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 
 
 def _attn_mlp_block(x, bp, cfg: ModelConfig, ctx, positions=None):
+    """One block -> (x, MoE aux loss; 0 for a dense block)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     with ctx.scope("attn"):
         h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
         x = x + attention_apply(h, bp["attn"], cfg, ctx, positions)
-    with ctx.scope("mlp"):
-        h = rmsnorm(x, bp["ln2"], cfg.norm_eps)
-        x = x + mlp_apply(h, bp["mlp"], cfg.act, ctx)
-    return x
+    if cfg.family == "moe":
+        with ctx.scope("moe"):
+            h = rmsnorm(x, bp["ln2"], cfg.norm_eps)
+            y, aux = moe_apply(h, bp["moe"], cfg, ctx)
+            x = x + y
+    else:
+        with ctx.scope("mlp"):
+            h = rmsnorm(x, bp["ln2"], cfg.norm_eps)
+            x = x + mlp_apply(h, bp["mlp"], cfg.act, ctx)
+    return x, aux
 
 
 def _decode_block(x, bp, cfg, ctx, attn):
@@ -77,9 +93,22 @@ def _decode_block(x, bp, cfg, ctx, attn):
         h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
         a, st = attn(h)
         x = x + a
-    with ctx.scope("mlp"):
-        h = rmsnorm(x, bp["ln2"], cfg.norm_eps)
-        x = x + mlp_apply(h, bp["mlp"], cfg.act, ctx)
+    if cfg.family == "moe":
+        with ctx.scope("moe"):
+            h = rmsnorm(x, bp["ln2"], cfg.norm_eps)
+            if h.shape[1] > 1:
+                # capacity and rank depend on the call's token count, so
+                # each query column is routed on its own: a (B, T) call
+                # equals T one-token steps even when experts overflow
+                y = torch.cat([moe_apply(h[:, j:j + 1], bp["moe"], cfg, ctx)[0]
+                               for j in range(h.shape[1])], dim=1)
+            else:
+                y, _ = moe_apply(h, bp["moe"], cfg, ctx)
+            x = x + y
+    else:
+        with ctx.scope("mlp"):
+            h = rmsnorm(x, bp["ln2"], cfg.norm_eps)
+            x = x + mlp_apply(h, bp["mlp"], cfg.act, ctx)
     return x, st
 
 
@@ -108,22 +137,28 @@ def logits_from_hidden(params, x, cfg: ModelConfig, ctx) -> torch.Tensor:
 
 
 def forward(params, inputs: Dict[str, torch.Tensor], cfg: ModelConfig,
-            ctx: Optional[Context] = None) -> torch.Tensor:
-    """Logits (B, S, V_padded) of the unrolled forward."""
-    require_dense(cfg)
+            ctx: Optional[Context] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(logits (B, S, V_padded), MoE aux loss summed over layers) of the
+    unrolled forward."""
+    require_ported_family(cfg)
     ctx = ctx or Context()
     x = embed_inputs(params, inputs, cfg, ctx)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
         with ctx.scope(f"layers/{i}"):
-            x = _attn_mlp_block(x, params["layers"][str(i)], cfg, ctx)
-    return logits_from_hidden(params, x, cfg, ctx)
+            x, da = _attn_mlp_block(x, params["layers"][str(i)], cfg, ctx)
+            aux = aux + da
+    return logits_from_hidden(params, x, cfg, ctx), aux
 
 
 def loss_fn(params, inputs: Dict[str, torch.Tensor], cfg: ModelConfig,
-            ctx: Optional[Context] = None) -> torch.Tensor:
-    """Mean next-token cross-entropy; the padded vocab is masked. The CE
-    stays in the logits dtype, with fp32 only inside exp and the sum."""
-    logits = forward(params, inputs, cfg, ctx=ctx)
+            ctx: Optional[Context] = None,
+            aux_weight: float = 0.01) -> torch.Tensor:
+    """Mean next-token cross-entropy plus ``aux_weight`` times the MoE
+    aux loss; the padded vocab is masked. The CE stays in the logits
+    dtype, with fp32 only inside exp and the sum."""
+    logits, aux = forward(params, inputs, cfg, ctx=ctx)
     labels = inputs["labels"].long()
     v = vocab_padded(cfg)
     if v != cfg.vocab_size:
@@ -135,4 +170,4 @@ def loss_fn(params, inputs: Dict[str, torch.Tensor], cfg: ModelConfig,
     sumexp = torch.sum(torch.exp(shifted.to(torch.float32)), dim=-1)
     gold = torch.gather(shifted, -1, labels[..., None])[..., 0]
     nll = torch.log(sumexp) - gold.to(torch.float32)
-    return torch.mean(nll)
+    return torch.mean(nll) + aux_weight * aux

@@ -171,6 +171,10 @@ class QTensor:
     axis: int                # pack axis (normalized)
 
     @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    @property
     def nbytes(self) -> int:
         """Payload bytes (scales excluded — see ``scale_bytes``)."""
         return self.data.numel() * self.data.element_size()
@@ -244,6 +248,47 @@ def quantize(x: torch.Tensor, bits: int, group_size: Optional[int] = None,
     # the payload contiguous so kernels never copy it per call
     return QTensor(pack(q, bits, ax).contiguous(), scale.to(torch.float32),
                    bits, tuple(x.shape), ax)
+
+
+def quantize_experts(x: torch.Tensor, bits: int,
+                     group_size: Optional[int] = None) -> QTensor:
+    """Quantize a stacked expert weight (E, K, N) with PER-EXPERT
+    per-(group, out-channel) scales (E, G, N), packed along K (axis 1):
+    ``expert_slice(qt, e)`` is ``quantize(x[e], bits, group_size)`` bit
+    for bit, so every expert is a self-contained ``qmm`` block."""
+    if x.ndim != 3:
+        raise ValueError(f"expert stacks are 3-D (E, K, N); got {tuple(x.shape)}")
+    e, k, n = x.shape
+    gs = k if group_size is None else min(group_size, k)
+    if k % gs:
+        raise ValueError(f"group_size {gs} does not divide K ({k})")
+    if bits in _UNITS:
+        if k % _UNITS[bits][0]:
+            raise ValueError(
+                f"{bits}-bit packing needs K ({k}) divisible by "
+                f"{_UNITS[bits][0]}")
+        if gs % _UNITS[bits][0]:
+            raise ValueError(
+                f"group_size {gs} must be a multiple of the {bits}-bit "
+                f"pack unit ({_UNITS[bits][0]})")
+    qmax = qmax_for_bits(bits)
+    x32 = x.to(torch.float32)
+    amax = torch.amax(torch.abs(x32).reshape(e, k // gs, gs, n), dim=2)
+    scale = (torch.clamp_min(amax, 1e-12) / qmax).to(torch.float32)
+    q = quantize_values(x32, expand_scale(scale, tuple(x.shape)), bits)
+    return QTensor(pack(q, bits, 1).contiguous(), scale, bits,
+                   tuple(x.shape), 1)
+
+
+def expert_slice(qt: QTensor, e: int) -> QTensor:
+    """Expert ``e`` of a ``quantize_experts`` stack as a 2-D (K, N)
+    QTensor: a pure slice of payload and scales (a shared-scale stack
+    hands every expert its one scale grid)."""
+    if qt.ndim != 3:
+        raise ValueError(f"expert_slice needs a 3-D QTensor; got {qt.shape}")
+    scale = qt.scale[e] if qt.scale.shape[0] == qt.shape[0] else qt.scale[0]
+    return QTensor(qt.data[e], scale, qt.bits, qt.shape[1:],
+                   qt.axis - 1 if qt.axis else 0)
 
 
 def is_qtensor(x: Any) -> bool:

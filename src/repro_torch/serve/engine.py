@@ -17,10 +17,14 @@ tokens equal those of the same request served alone.
 
 Ported: greedy decoding, dense and paged KV, chunked prefill interleaved
 with decode, page-table growth, eviction and backfill, admission
-deferral when the page pool is full. Not yet ported (raise
-``NotImplementedError``): sampled decoding, prefix sharing /
+deferral when the page pool is full; the dense and MoE families (MoE
+expert stacks through ``grouped_qmm``, or the per-expert ``qmm`` loop or
+the fp einsum, by ``moe_dispatch``). On the MoE path the row
+independence above stops at the experts' capacity, which couples a
+token to its batch-mates as it does in the reference. Not yet ported
+(raise ``NotImplementedError``): sampled decoding, prefix sharing /
 copy-on-write, speculative decoding, observability, tensor parallelism
-and the non-dense families.
+and the ssm, hybrid, audio and vlm families.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ from repro_torch.models.context import Context, DequantContext
 from repro_torch.models.decode import (
     DecodeState, decode_step, init_decode_state, init_paged_decode_state,
     prefill_into, state_insert_slot)
+from repro_torch.models.transformer import require_ported_family
 from repro_torch.qtensor import tree_has_qtensor
 from repro_torch.serve.metrics import EngineMetrics
 from repro_torch.serve.request import Request, RequestStatus
@@ -64,6 +69,10 @@ class EngineConfig:
     interleave_steps: int = 4     # decode steps run between prefill chunks
     clock: str = "steps"          # "steps" (deterministic) | "wall" (seconds)
     int8_compute: bool = False    # route QTensor blocks through ops.qmm
+    # packed MoE expert stacks (int8_compute only): "grouped" (one
+    # grouped_qmm per projection), "dense" (per-expert qmm loop, the
+    # bit-identity oracle) or "einsum" (fp-dequant batched einsum)
+    moe_dispatch: str = "grouped"
     # ---- paged KV cache ----
     kv_cache: str = "dense"       # "dense" | "paged"
     page_size: int = 16
@@ -84,9 +93,7 @@ def _check_supported(cfg: ModelConfig, ecfg: EngineConfig, scales) -> None:
         raise NotImplementedError(
             "prefix sharing / copy-on-write is not ported yet "
             "(EngineConfig(prefix_sharing=False))")
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)")
+    require_ported_family(cfg)
     if scales:
         raise NotImplementedError(
             "legacy int8 + scales storage is not ported; use quantize_params")
@@ -113,7 +120,8 @@ class Engine:
         self.cfg = cfg
         self.ecfg = ecfg
         self._ctx = (DequantContext(None, cfg.param_dtype,
-                                    int8_compute=ecfg.int8_compute)
+                                    int8_compute=ecfg.int8_compute,
+                                    moe_dispatch=ecfg.moe_dispatch)
                      if tree_has_qtensor(params) else Context())
         self._paged = ecfg.kv_cache == "paged"
         self._pcfg: Optional[PagedKVConfig] = None

@@ -3,7 +3,8 @@
 
 ``quantize_params`` turns every matmul block the config quantizes into a
 packed QTensor (int8 at W8, 4-values-in-3-bytes at W6, nibbles at W4/W3)
-with per-output-channel, optionally per-group, scales; the engine runs
+with per-output-channel, optionally per-group, scales — 3-D MoE expert
+stacks with per-expert scales (``quantize_experts``); the engine runs
 them through ``DequantContext``. The legacy int8-backed format and the
 tensor-parallel placement wait for later slices.
 """
@@ -19,7 +20,9 @@ from repro_torch.configs import ModelConfig
 from repro_torch.core.fit import SensitivityReport
 from repro_torch.core.mpq import greedy_allocate
 from repro_torch.models.context import DequantContext
-from repro_torch.qtensor import quantize as qt_quantize, tree_payload_bytes
+from repro_torch.qtensor import (
+    quantize as qt_quantize, quantize_experts as qt_quantize_experts,
+    tree_payload_bytes)
 from repro_torch.quant.policy import BitConfig, QuantPolicy
 from repro_torch.utils.pytree import map_with_names, named_leaves
 
@@ -83,11 +86,11 @@ def quantize_params(params, bits: Union[int, BitConfig],
         b = _block_bits(bit_cfg, name, leaf, policy)
         if b is None:
             return leaf
-        if leaf.ndim != 2:
-            raise NotImplementedError(
-                f"{name}: only 2-D matmul blocks are ported (got "
-                f"{tuple(leaf.shape)})")
-        qt = qt_quantize(leaf, b, group_size=group_size)
+        # expert stacks get per-expert (E, G, N) scale grids: each expert
+        # is a self-contained qmm block, which the grouped kernel needs
+        qt = (qt_quantize_experts(leaf, b, group_size=group_size)
+              if leaf.ndim == 3 else
+              qt_quantize(leaf, b, group_size=group_size))
         scales[qw_path(name)] = qt.scale
         hist[b] = hist.get(b, 0) + 1
         return qt
@@ -100,8 +103,10 @@ def quantize_params(params, bits: Union[int, BitConfig],
 
 
 def make_dequant_context(cfg: ModelConfig, scales=None,
-                         int8_compute: bool = False) -> DequantContext:
-    return DequantContext(scales, cfg.param_dtype, int8_compute=int8_compute)
+                         int8_compute: bool = False,
+                         moe_dispatch: str = "grouped") -> DequantContext:
+    return DequantContext(scales, cfg.param_dtype, int8_compute=int8_compute,
+                          moe_dispatch=moe_dispatch)
 
 
 def bit_config_from_report(report: SensitivityReport,

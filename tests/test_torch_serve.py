@@ -136,6 +136,6 @@ def test_sampled_decoding_and_other_families_raise(packed):
                             sampling=SamplingParams(temperature=0.7))
     with pytest.raises(NotImplementedError):
         eng.run(reqs)
-    moe = ModelConfig(name="m", family="moe", num_layers=1, d_model=8)
+    ssm = ModelConfig(name="m", family="ssm", num_layers=1, d_model=8)
     with pytest.raises(NotImplementedError):
-        TEngine(tq, moe, TEngineConfig(), device="cpu")
+        TEngine(tq, ssm, TEngineConfig(), device="cpu")
