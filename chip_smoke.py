@@ -17,6 +17,14 @@ Phases, in order; any failure exits non-zero:
      bit allocation -> packed QTensors -> FIT KV widths -> paged serving
      of Poisson requests (greedy), with every kernel launch counter reset
      just before each path and read just after its serving run;
+  3c. the serving CLI's path at full width: repro_torch.launch.serve.serve()
+     on internlm2_1_8b with int8-backed W8 weights through int8_matmul,
+     paged int8 KV with a 24-token shared prefix (prefix sharing and a
+     copy-on-write page), counters reset just before it and read just
+     after; then the sharing contract at full width (paged bf16 pages
+     with sharing == the dense cache == paged without sharing), and the
+     CLI itself (python -m repro_torch.launch.serve --smoke ...) in a
+     subprocess;
   4. print the kernels line and the main-path metrics;
   5. print {"ok": true, "device": {...}} as the last line.
 
@@ -245,6 +253,87 @@ def check_grouped_qmm(timer, gen, rows):
         del w
 
 
+# (name, K, N, activation rows M); the head, the attention and MLP
+# projections of internlm2_1_8b, a ragged shape, and the largest K whose
+# int32 accumulation is proven not to wrap (127 * 127 * K < 2^31)
+INT8_SHAPES = [("wq/wo", 2048, 2048, (1, 4)), ("wk/wv", 2048, 1024, (4,)),
+               ("w_up/w_gate", 2048, 8192, (4,)), ("w_down", 8192, 2048, (4,)),
+               ("head", 2048, 92544, (4,)), ("ragged", 2056, 1000, (3,)),
+               ("full-K limit", 133_144, 256, (1,))]
+
+
+def check_int8_matmul(timer, gen, rows):
+    """The W8A8 kernel against its plain version: outputs ``torch.equal``
+    (integer accumulation, the same fp32 epilogue in the same order).
+    The full-K row uses the extreme grid values (-127 everywhere), the
+    accumulator's worst case; a scalar x_scale is checked on wq; K one
+    past the proven limit must be refused before any launch."""
+    from repro_torch.kernels import int8_matmul as kmod, ref
+
+    def check(tag, xq, w, xs, ws):
+        got = kmod.int8_matmul(xq, w, xs, ws)
+        want = ref.int8_matmul(xq, w, torch.as_tensor(xs, device="cuda")
+                               .reshape(-1, 1).expand(xq.shape[0], 1),
+                               ws.reshape(1, -1))
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            err = (got - want).abs().max().item()
+            raise AssertionError(f"int8_matmul {tag}: differs from the plain "
+                                 f"version (max err {err})")
+        return (got - want).abs().max().item()
+
+    for name, k, n, ms in INT8_SHAPES:
+        if name == "full-K limit":
+            w = torch.full((k, n), -127, dtype=torch.int8, device="cuda")
+        else:
+            w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                              dtype=torch.int32).to(torch.int8)
+        ws = torch.rand(n, generator=gen, device="cuda") * 0.01 + 1e-4
+        wd = (w.float() * ws).to(torch.bfloat16)
+        for m in ms:
+            if name == "full-K limit":
+                xq = torch.full((m, k), -127, dtype=torch.int8, device="cuda")
+            else:
+                xq = torch.randint(-127, 128, (m, k), generator=gen,
+                                   device="cuda", dtype=torch.int32).to(torch.int8)
+            xs = torch.rand(m, generator=gen, device="cuda") * 0.02 + 1e-3
+            err = check(f"{name} M={m}", xq, w, xs, ws)
+            if name == "wq/wo" and m == 4:
+                check(f"{name} M={m} scalar x_scale", xq, w, 0.0123, ws)
+            nbytes = k * n + m * k + 4 * (m + n + m * n)
+            b_ms, b_by = bound_ms(nbytes, 2.0 * m * k * n, INT8_OPS)
+            xb = (xq.float() * xs[:, None]).to(torch.bfloat16)
+            int_mm_ms = None
+            if k % 8 == 0 and n % 8 == 0:      # torch._int_mm's constraints
+                xp = torch.zeros((32, k), dtype=torch.int8, device="cuda")
+                xp[:m] = xq
+                int_mm_ms = timer(lambda: torch._int_mm(xp, w))
+            row = {"kernel": "int8_matmul", "shape": f"{name} {k}x{n} M={m}",
+                   "m": m, "max_abs_err": err,
+                   "ms": timer(lambda: kmod.int8_matmul(xq, w, xs, ws)),
+                   "plain_ms": timer(lambda: ref.int8_matmul(
+                       xq, w, xs.reshape(-1, 1), ws.reshape(1, -1))),
+                   "library_ms": int_mm_ms,
+                   "library_bf16_ms": timer(lambda: torch.matmul(xb, wd)),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            rows.append(row)
+            log(json.dumps(row))
+        del w, wd
+    # one past the proven limit: refused before any launch
+    before = kmod.launches
+    x = torch.zeros((1, 133_145), dtype=torch.int8, device="cuda")
+    w = torch.zeros((133_145, 1), dtype=torch.int8, device="cuda")
+    one = torch.ones(1, device="cuda")
+    try:
+        kmod.int8_matmul(x, w, one, one)
+    except ValueError as exc:
+        log(f"int8_matmul K=133145 refused: {exc}")
+    else:
+        raise AssertionError("int8_matmul accepted K=133145")
+    if kmod.launches != before:
+        raise AssertionError("int8_matmul launched on a refused K")
+
+
 def _random_pages(gen, bits, p, page, kvh, dh):
     from repro_torch.qtensor import pack, packed_size, qmax_for_bits
 
@@ -374,6 +463,7 @@ def main() -> int:
     check_paged_attention(timer, gen, rows, kvh=16, g=1)      # olmoe's GQA
     check_qmm(timer, gen, rows)
     check_grouped_qmm(timer, gen, rows)
+    check_int8_matmul(timer, gen, rows)
     log(f"phase 2: {len(rows)} kernel checks passed in "
         f"{time.perf_counter() - t0:.1f} s")
     result = {"card": card, "kind": kind, "kernel_checks": rows}
@@ -392,6 +482,13 @@ def main() -> int:
             log(f"phase 3b: {arch} main path in {time.perf_counter() - t0:.1f} s, "
                 f"peak device memory {mp['peak_mem_gb']:.1f} GB")
             log(json.dumps({"main_path": mp}))
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        result["cli_path"] = cp = cli_path()
+        log(f"phase 3c: serving CLI path in {time.perf_counter() - t0:.1f} s, "
+            f"peak device memory {cp['peak_mem_gb']:.1f} GB")
+        log(json.dumps({"cli_path": cp}))
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -399,7 +496,8 @@ def main() -> int:
     if args.kernels_only:
         return 0
     mps = result["main_paths"]
-    log(json.dumps({"kernels": kernels_line(rows, mps)}))
+    paths = [mp["launches"] for mp in mps.values()] + [cp["launches"]]
+    log(json.dumps({"kernels": kernels_line(rows, paths)}))
     for arch, mp in mps.items():
         log(f"[{card}] {arch}: report {mp['report_s']:.2f} s; packed weights "
             f"{mp['packed_bytes'] / 1e9:.3f} GB vs FIT-predicted "
@@ -407,6 +505,12 @@ def main() -> int:
             f"{mp['decode_tokens_per_s']:.1f} tok/s; TTFT p50 "
             f"{mp['ttft_p50']:.3f} s p95 {mp['ttft_p95']:.3f} s; peak "
             f"{mp['peak_mem_gb']:.1f} GB")
+    log(f"[{card}] launch.serve internlm2_1_8b --int8 --int8-compute --paged: "
+        f"int8-backed weights {cp['weight_bytes'] / 1e9:.3f} GB; decode "
+        f"{cp['decode_tokens_per_s']:.1f} tok/s; TTFT p50 {cp['ttft_p50']:.3f} s "
+        f"p95 {cp['ttft_p95']:.3f} s; shared {cp['kv_shared_tokens']} tokens, "
+        f"{cp['kv_cow_copies']} COW copies; device busy "
+        f"{cp['profile']['device_busy_share']:.3f}")
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -425,19 +529,26 @@ KERNELS = [
      "B=4 KV=8 G=2 Dh=128 page=16 W8"),
     ("grouped_qmm", "src/repro_torch/kernels/csrc/grouped_qmm.cu",
      "src/repro/kernels/grouped_qmm.py:125", "w_up/w_gate 2048x1024 W4 C=1"),
+    ("int8_matmul", "src/repro_torch/kernels/csrc/int8_matmul.cu",
+     "src/repro/kernels/int8_matmul.py:53", "head 2048x92544 M=4"),
 ]
 SMOKE_ARCHS = ("internlm2_1_8b", "olmoe_1b_7b", "deepseek_moe_16b")
 # full-width main paths (arch, report microbatch), driven in this order
 MAIN_PATHS = (("internlm2_1_8b", 4), ("olmoe_1b_7b", 2))
-# the kernels each family's main path must launch
+# the kernels each main path must launch ("cli": the serving CLI's
+# int8-backed path, which must launch none of CLI_IDLE_KERNELS)
 PATH_KERNELS = {"dense": ("ef_sqnorm", "qmm", "paged_attention"),
-                "moe": ("ef_sqnorm", "qmm", "paged_attention", "grouped_qmm")}
+                "moe": ("ef_sqnorm", "qmm", "paged_attention", "grouped_qmm"),
+                "cli": ("int8_matmul", "paged_attention")}
+CLI_IDLE_KERNELS = ("qmm", "grouped_qmm", "ef_sqnorm")
 
 
 def _kernel_modules():
-    from repro_torch.kernels import ef_sqnorm, grouped_qmm, paged_attention, qmm
+    from repro_torch.kernels import (
+        ef_sqnorm, grouped_qmm, int8_matmul, paged_attention, qmm)
     return {"ef_sqnorm": ef_sqnorm, "qmm": qmm,
-            "paged_attention": paged_attention, "grouped_qmm": grouped_qmm}
+            "paged_attention": paged_attention, "grouped_qmm": grouped_qmm,
+            "int8_matmul": int8_matmul}
 
 
 def check_small_reference(arch: str) -> float:
@@ -590,6 +701,116 @@ def main_path(arch: str, microbatch: int):
     return res
 
 
+def cli_path():
+    """Phase 3c: ``launch.serve.serve()`` as the CLI runs it (``--arch
+    internlm2_1_8b --batch 4 --prompt-len 64 --gen-len 32 --weight-bits 8
+    --int8 --int8-compute --requests 8 --rate 4 --clock wall --paged
+    --page-size 16 --kv-bits 8 --shared-prefix 24``) at full width. The
+    prefix ends inside a page, so admission shares a full page and
+    copies the boundary page on write."""
+    from repro_torch.launch.serve import serve
+
+    mods = _kernel_modules()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in mods.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    out = serve("internlm2_1_8b", False, 4, 64, 32, 8, int8=True,
+                int8_compute=True, n_requests=8, rate=4.0, clock="wall",
+                paged=True, page_size=16, kv_bits=8, shared_prefix=24)
+    torch.cuda.synchronize()
+    res = {"serve_s": time.perf_counter() - t0,
+           "launches": {name: mod.launches for name, mod in mods.items()}}
+    engine = out["engine"]
+    cfg = engine.cfg
+    fin = out["requests"]
+    if len(fin) != 8:
+        raise AssertionError(f"launch.serve: {len(fin)} of 8 requests finished")
+    for r in fin:
+        if r.num_generated != r.max_new_tokens:
+            raise AssertionError(f"launch.serve request {r.id}: "
+                                 f"{r.num_generated} of {r.max_new_tokens} tokens")
+        if not ((r.output_tokens >= 0) & (r.output_tokens < cfg.vocab_size)).all():
+            raise AssertionError(f"launch.serve request {r.id}: token out of the vocab")
+    for name in PATH_KERNELS["cli"]:
+        if res["launches"][name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the CLI path")
+    for name in CLI_IDLE_KERNELS:
+        if res["launches"][name] != 0:
+            raise AssertionError(f"kernel {name} was launched by the int8-backed "
+                                 "CLI path")
+    s = out["metrics"]
+    if not (s["kv_shared_tokens"] > 0 and s["kv_cow_copies"] > 0):
+        raise AssertionError(f"launch.serve: no prefix sharing ({s['kv_shared_tokens']} "
+                             f"tokens, {s['kv_cow_copies']} COW copies)")
+    res.update({k: s[k] for k in ("decode_tokens_per_s", "prefill_tokens_per_s",
+                                  "ttft_p50", "ttft_p95", "e2e_p50",
+                                  "token_latency_p50_ms", "decode_tokens",
+                                  "kv_shared_tokens", "kv_cow_copies",
+                                  "kv_peak_bytes", "kv_pool_bytes")})
+    res["weight_bytes"] = out["weight_bytes"]
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["sharing_contract"] = check_sharing_contract(engine)
+    res["profile"] = profile_serving(engine, cfg)
+    res["cli_smoke"] = run_cli_smoke()
+    return res
+
+
+def check_sharing_contract(engine) -> dict:
+    """Three short requests with a 24-token shared prefix over the CLI
+    engine's weights: paged bf16 pages with sharing give the greedy
+    streams of paged pages without sharing and of the dense cache."""
+    from repro_torch.serve.engine import Engine, EngineConfig
+    from repro_torch.serve.loadgen import trace_requests
+
+    cfg = engine.cfg
+    trace = [(0.0, 40, 8), (0.0, 30, 8), (0.0, 35, 8)]
+    base = dict(max_slots=3, max_len=48, max_new_tokens=8, prefill_chunk=32,
+                int8_compute=True)
+    outs, shared = {}, {}
+    for name, kw in (("paged_shared", dict(kv_cache="paged", page_size=16)),
+                     ("paged_unshared", dict(kv_cache="paged", page_size=16,
+                                             prefix_sharing=False)),
+                     ("dense", dict(kv_cache="dense"))):
+        eng = Engine(engine.params, cfg, EngineConfig(**base, **kw),
+                     scales=engine.scales)
+        fin, m = eng.run(trace_requests(cfg, trace, prefix_len=24))
+        outs[name] = [r.output_tokens.tolist() for r in fin]
+        shared[name] = m.summary()["kv_shared_tokens"]
+        del eng
+    if not shared["paged_shared"]:
+        raise AssertionError("sharing contract: no prefix was shared")
+    for name in ("paged_unshared", "dense"):
+        if outs[name] != outs["paged_shared"]:
+            raise AssertionError(f"sharing contract: paged shared != {name}: {outs}")
+    return {"requests": len(trace), "tokens": sum(map(len, outs["dense"])),
+            "kv_shared_tokens": shared["paged_shared"]}
+
+
+def run_cli_smoke() -> dict:
+    """``python -m repro_torch.launch.serve`` itself on the smoke config, in
+    a subprocess on this card; its standard output is the JSON dump."""
+    import os
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "internlm2_1_8b", "--smoke", "--int8", "--int8-compute", "--paged",
+           "--kv-bits", "8", "--requests", "4", "--rate", "0.05"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          cwd=str(ROOT), timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"launch.serve CLI exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    dump = json.loads(proc.stdout)
+    if dump["metrics"]["n_finished"] != 4:
+        raise AssertionError(f"launch.serve CLI: {dump['metrics']['n_finished']} "
+                             "of 4 requests finished")
+    return {"wall_s": time.perf_counter() - t0,
+            "n_finished": dump["metrics"]["n_finished"],
+            "decode_tokens": dump["metrics"]["decode_tokens"]}
+
+
 def check_grouped_equals_dense(qparams, cfg, ecfg, kv_bits, ranges) -> dict:
     """Two short requests served with moe_dispatch="grouped" (one
     grouped_qmm per projection) and "dense" (the per-expert qmm kernel
@@ -660,12 +881,13 @@ def profile_serving(engine, cfg, n_top: int = 10):
                              "device_ms": dev_us(e) / 1e3} for e in top]}
 
 
-def kernels_line(rows, mps):
-    """One entry per kernel; ``launches`` sums the main paths' runs."""
+def kernels_line(rows, paths):
+    """One entry per kernel; ``launches`` sums the main paths' runs
+    (``paths``: each path's launch counts)."""
     out = []
     for name, source, replaces, shape in KERNELS:
         row = next(r for r in rows if r["kernel"] == name and r["shape"] == shape)
-        launches = sum(mp["launches"][name] for mp in mps.values())
+        launches = sum(p[name] for p in paths)
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": launches,
                     "max_abs_err": row["max_abs_err"], "ms": row["ms"],

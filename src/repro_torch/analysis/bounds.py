@@ -3,7 +3,8 @@ validators in ``repro.analysis.bounds``).
 
 A group's int32 dot accumulates ``group_size`` products of grid values
 of magnitude at most ``qmax_w * qmax_a``; the kernel is safe iff that
-peak stays below 2^31.
+peak stays below 2^31. The W8A8 ``int8_matmul`` accumulates the whole
+reduction axis in one int32, so there K itself is the group.
 """
 from __future__ import annotations
 
@@ -38,6 +39,17 @@ def require_group_dot_safe(bits_w: int, bits_a: int, group_size: int,
             f"{where}: W{bits_w}A{bits_a} group_size={group_size} can "
             f"overflow int32 (worst-case group dot {peak} >= 2^31, RPR201); "
             f"requantize with group_size <= {max_safe_group(bits_w, bits_a)}")
+
+
+def require_full_k_safe(bits_w: int, bits_a: int, k: int, where: str) -> None:
+    """Refuse a full-K int32 accumulation that can wrap (W8A8: K must
+    stay at or below 133,144)."""
+    peak = group_dot_peak(bits_w, bits_a, k)
+    if peak >= INT32_LIMIT:
+        raise ValueError(
+            f"{where}: W{bits_w}A{bits_a} K={k} can overflow the int32 "
+            f"accumulator (worst case {peak} >= 2^31, RPR202); safe only "
+            f"for K <= {max_safe_group(bits_w, bits_a)}")
 
 
 def require_act_alloc_sane(budget_bits: float, group_sizes: Sequence[float],

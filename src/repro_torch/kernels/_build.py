@@ -35,6 +35,7 @@ SIGNATURES = {
     "qmm_launch": [_P, _P, _P, _P, _P, _P, _I, _L, _L, _L, _L, _P],
     "grouped_qmm_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
                            _L, _L, _L, _L, _L, _L, _L, _P],
+    "int8_matmul_launch": [_P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L, _P],
     "paged_attention_launch": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P,
                                _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }

@@ -8,8 +8,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis.bounds import require_full_k_safe
 from repro_torch.kernels.ef_sqnorm import ef_sqnorm as _ef_sqnorm
 from repro_torch.kernels.grouped_qmm import grouped_qmm as _grouped_qmm
+from repro_torch.kernels.int8_matmul import int8_matmul as _int8_matmul
 from repro_torch.kernels.paged_attention import (
     paged_attention as _paged_attention)
 from repro_torch.kernels.qmm import qmm as _qmm
@@ -18,6 +20,19 @@ from repro_torch.kernels.qmm import qmm as _qmm
 def ef_sqnorm(g: torch.Tensor) -> torch.Tensor:
     """(B, N) per-sample gradients -> (B,) fp32 squared norms."""
     return _ef_sqnorm(g)
+
+
+def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale, w_scale,
+                out_dtype=torch.float32) -> torch.Tensor:
+    """W8A8: (M, K) int8 x (K, N) int8 with per-row activation scales
+    (a scalar or (M,) ``x_scale`` becomes (M, 1)) and per-channel weight
+    scales. The full-K overflow proof runs on every route."""
+    require_full_k_safe(8, 8, x_q.shape[-1], where="ops.int8_matmul")
+    xs = torch.as_tensor(x_scale, dtype=torch.float32, device=x_q.device)
+    xs = xs.reshape(-1, 1)
+    if xs.shape[0] == 1:
+        xs = xs.expand(x_q.shape[0], 1)
+    return _int8_matmul(x_q, w_q, xs, w_scale).to(out_dtype)
 
 
 def qmm(x_q: torch.Tensor, w, x_scale, out_dtype=torch.float32) -> torch.Tensor:

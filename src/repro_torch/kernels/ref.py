@@ -17,6 +17,25 @@ def ef_sqnorm(g: torch.Tensor) -> torch.Tensor:
     return torch.sum(g32 * g32, dim=-1)
 
 
+def int8_dots(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """Exact full-K integer dots (M, N) int32 of (M, K) int8 x (K, N)
+    int8: int32 on the CPU, float64 on CUDA (exact, as in
+    ``qmm_group_dots``; ``require_full_k_safe`` keeps them in int32)."""
+    dt = torch.int32 if x_q.device.type == "cpu" else torch.float64
+    return (x_q.to(dt) @ w_q.to(dt)).to(torch.int32)
+
+
+def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale, w_scale,
+                out_dtype=torch.float32) -> torch.Tensor:
+    """W8A8 matmul: int8 x (M, K) @ int8 w (K, N), int32 accumulate, then
+    ``(f32(acc) * x_scale) * w_scale`` in that order (the reference's
+    epilogue). x_scale: scalar or (M, 1); w_scale: scalar, (N,) or (1, N)."""
+    acc = int8_dots(x_q, w_q).to(torch.float32)
+    xs = torch.as_tensor(x_scale, dtype=torch.float32, device=acc.device)
+    ws = torch.as_tensor(w_scale, dtype=torch.float32, device=acc.device)
+    return (acc * xs * ws).to(out_dtype)
+
+
 def qmm_group_dots(x_q: torch.Tensor, w) -> torch.Tensor:
     """Exact per-group integer dots (G, M, N) of (M, K) int8 x QTensor(K, N).
 
@@ -118,8 +137,9 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     pos: (B,) positions (positions <= pos attend); k_scale/v_scale:
     (P, KV) per-page per-kv-head scales. Returns (B, KV, G, Dh).
 
-    At float precision this is bit-identical to the dense
-    ``attention_decode`` read path (same gathered values, same einsums).
+    At float precision this equals the reference's dense read path on
+    the gathered values (the same einsums and mask); the port's dense
+    ``attention_decode`` reads its cache through this function.
     """
     from repro_torch.qtensor import unpack
 
@@ -139,25 +159,11 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     t = table.shape[1] * page
     kg = kg.reshape(b, t, kvh, dh)
     vg = vg.reshape(b, t, kvh, dh)
-    g = q.shape[2] // kvh
-    qg = q.reshape(b, kvh, g, dh)
-    return decode_read(qg, kg, vg, pos.reshape(b, 1))
-
-
-def decode_read(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                posb: torch.Tensor) -> torch.Tensor:
-    """Masked one-pass softmax attention shared by the dense and paged
-    read paths. qg: (B, KV, Gq, Dh); k/v: (B, T, KV, Dh); posb: (B, Gq')
-    with Gq a multiple of Gq' (each query row attends positions <= its
-    own). Returns (B, KV, Gq, Dh) in v's dtype."""
-    b, kvh, gq, dh = qg.shape
-    t = k.shape[1]
+    qg = q.reshape(b, kvh, q.shape[2] // kvh, dh)
     sc = torch.einsum("bkgd,btkd->bkgt", qg.to(torch.float32),
-                      k.to(torch.float32)) * (dh ** -0.5)
-    rep = gq // posb.shape[1]
-    pq = torch.repeat_interleave(posb, rep, dim=1)          # (B, Gq)
-    mask = torch.arange(t, device=k.device)[None, None, None, :] \
-        <= pq[:, None, :, None]
+                      kg.to(torch.float32)) * (dh ** -0.5)
+    mask = torch.arange(t, device=kg.device)[None, None, None, :] \
+        <= pos.reshape(b, 1, 1, 1)
     sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
     pr = torch.softmax(sc, dim=-1)
-    return torch.einsum("bkgt,btkd->bkgd", pr.to(v.dtype), v)
+    return torch.einsum("bkgt,btkd->bkgd", pr.to(vg.dtype), vg)

@@ -4,7 +4,7 @@ Each attention layer owns a ``(P, page, KV, Dh')`` pool for k and v, at
 its own bit width: fp at 16 bits, int8 at 8/7/5, packed uint8 at 6/4/3
 (the QTensor byte layout along Dh), with per-page per-kv-head fp32
 scales ``(P, KV)`` from the report's calibrated activation ranges.
-Pools are written in place.
+Pools are written in place, copy-on-write page copies too.
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ import torch
 from repro_torch.configs import ModelConfig
 from repro_torch.qtensor import (
     PACKED_BITS, bytes_per_element, logical_size, pack, packed_size,
-    qmax_for_bits, quantize_values)
+    qmax_for_bits, quantize_values, unpack)
 
 # Fallback |activation| max when no calibrated range is supplied
 DEFAULT_KV_AMAX = 6.35
@@ -157,6 +157,40 @@ def quantize_kv(x: torch.Tensor, scale: torch.Tensor, bits: int) -> torch.Tensor
     """Float (..., KV, Dh) -> page storage at ``bits``; scale (..., KV)."""
     q = quantize_values(x, scale[..., None], bits)
     return pack(q, bits, axis=-1) if bits in PACKED_BITS else q
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, bits: int) -> torch.Tensor:
+    """Inverse of ``quantize_kv`` (fp32 output)."""
+    return unpack(q, bits).to(torch.float32) * scale[..., None]
+
+
+def gather_layer(lp: LayerPages, row: torch.Tensor, n_tokens: int,
+                 out_dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Page row -> dense (NP*page, KV, Dh) k and v spans, zero past
+    ``n_tokens`` (the prefix-reuse read: it seeds a dense scratch state
+    so suffix prefill attends to a shared prefix without recomputing it)."""
+    ids = torch.clamp(row.to(torch.int64), 0, lp.num_pages - 1)
+    kg, vg = lp.k[ids], lp.v[ids]                  # (NP, page, KV, Dh')
+    if lp.bits < 16:
+        kg = dequantize_kv(kg, lp.k_scale[ids][:, None, :], lp.bits)
+        vg = dequantize_kv(vg, lp.v_scale[ids][:, None, :], lp.bits)
+    t = row.shape[0] * lp.page_size
+    kg = kg.reshape((t,) + tuple(kg.shape[2:])).to(out_dtype)
+    vg = vg.reshape((t,) + tuple(vg.shape[2:])).to(out_dtype)
+    valid = (torch.arange(t, device=kg.device) < n_tokens)[:, None, None]
+    return (torch.where(valid, kg, torch.zeros_like(kg)),
+            torch.where(valid, vg, torch.zeros_like(vg)))
+
+
+def copy_page(lp: LayerPages, src: int, dst: int) -> LayerPages:
+    """Physical page copy, the copy-on-write primitive, in place. It
+    writes through ``k``/``v`` (views of ``k_buf``/``v_buf``), so the
+    spare page for dropped writes stays where it is."""
+    lp.k[dst] = lp.k[src]
+    lp.v[dst] = lp.v[src]
+    lp.k_scale[dst] = lp.k_scale[src]
+    lp.v_scale[dst] = lp.v_scale[src]
+    return lp
 
 
 def write_tokens(lp: LayerPages, pid: torch.Tensor, off: torch.Tensor,

@@ -1,0 +1,313 @@
+"""Serving CLI (port of ``repro.launch.serve``): a thin driver over the
+``repro_torch.serve`` continuous-batching engine, on the GPU.
+
+Two traffic shapes:
+
+  * closed-loop (default) — ``--batch`` identical requests at t=0;
+    returns a dense ``generated`` matrix.
+  * open-loop — ``--requests N --rate R`` Poisson arrivals through the
+    load generator, exercising admission/eviction/backfill under load.
+
+Quantization: ``--weight-bits B`` fake-quantizes in fp storage (PTQ
+numerics check); adding ``--int8`` materializes int8-backed storage with
+per-channel scales; adding ``--packed`` instead materializes packed
+QTensor storage (sub-byte widths shrink weight memory: 0.75 B/elem at
+W6, 0.5 at W4/W3). ``--int8-compute`` routes those matmuls through the
+integer kernels: ``int8_matmul`` for int8-backed blocks, ``qmm`` (and
+``grouped_qmm`` for MoE expert stacks) for packed ones.
+
+KV cache: ``--paged`` switches the dense per-slot cache for the paged
+pool (``repro_torch.kvcache``) with ``--page-size`` token pages,
+``--kv-bits`` storage (8 = int8, 4 = packed int4), an optional
+``--kv-pages`` pool budget, and hash-based prefix sharing with
+copy-on-write (``--shared-prefix N`` gives the generated prompts a
+common prefix; ``--no-prefix-sharing`` turns sharing off).
+
+MoE archs (olmoe_1b_7b, deepseek_moe_16b): packed expert stacks serve
+through the grouped ragged kernel by default; ``--moe-dispatch dense``
+selects the per-expert loop (bit-identical outputs).
+
+Not ported yet, and refused with ``NotImplementedError`` when given a
+value other than the default: ``--tp`` (ROADMAP A5), ``--spec-*`` (A4),
+``--trace``, ``--events``, ``--metrics-*``, ``--drain-every``,
+``--drift-*`` (A6), ``--temperature``, ``--top-k``, ``--top-p`` (A1).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2_1_8b \\
+      --smoke --int8 --int8-compute --paged --kv-bits 8 --requests 4 \\
+      --rate 0.05 --shared-prefix 24
+
+Logs go to standard error; standard output holds the JSON dump only.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import logging
+from typing import Dict, Optional
+
+import numpy as np
+
+from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.configs import get_config, smoke_config
+from repro_torch.models.transformer import init_params
+from repro_torch.quant.policy import QuantPolicy
+from repro_torch.quant.quantizer import QuantSpec, fake_quant_ref
+from repro_torch.serve import (
+    Engine, EngineConfig, SamplingParams, poisson_requests, quantize_params,
+    quantize_params_int8, trace_requests, weight_storage_bytes)
+from repro_torch.utils.pytree import map_with_names
+
+log = logging.getLogger("repro_torch.serve")
+
+
+def quantize_weights(params, weight_bits: Optional[int],
+                     policy: Optional[QuantPolicy] = None):
+    """PTQ: fake-quantize matmul weights to ``weight_bits`` (fp storage).
+
+    Pinning comes from ``QuantPolicy`` — the rule set MPQ search uses, so
+    serving and search never disagree about which blocks stay
+    high-precision."""
+    if weight_bits is None or weight_bits >= 16:
+        return params
+    policy = policy or QuantPolicy()
+
+    def one(name, leaf):
+        if not policy.quantizable(name, leaf.ndim):
+            return leaf
+        return fake_quant_ref(leaf, QuantSpec(bits=weight_bits))
+
+    return map_with_names(one, params)
+
+
+def _refuse_unported(**flags) -> None:
+    """Raise on a flag of a feature the port does not have yet (its
+    ROADMAP item in the message) when it is away from its default."""
+    unported = {
+        "tp": (1, "tensor-parallel serving (ROADMAP A5)"),
+        "spec_k": (0, "speculative decoding (ROADMAP A4)"),
+        "spec_bits": (None, "speculative decoding (ROADMAP A4)"),
+        "spec_kv_bits": (None, "speculative decoding (ROADMAP A4)"),
+        "trace_path": (None, "observability (ROADMAP A6)"),
+        "events_path": (None, "observability (ROADMAP A6)"),
+        "metrics_file": (None, "observability (ROADMAP A6)"),
+        "metrics_port": (None, "observability (ROADMAP A6)"),
+        "drain_every": (8, "observability (ROADMAP A6)"),
+        "drift_every": (0, "the FIT drift monitor (ROADMAP A6)"),
+        "drift_stale": (1.0, "the FIT drift monitor (ROADMAP A6)"),
+        "drift_threshold": (1.5, "the FIT drift monitor (ROADMAP A6)"),
+        "temperature": (0.0, "sampled decoding (ROADMAP A1)"),
+        "top_k": (0, "sampled decoding (ROADMAP A1)"),
+        "top_p": (1.0, "sampled decoding (ROADMAP A1)"),
+    }
+    for name, value in flags.items():
+        default, what = unported[name]
+        if value != default:
+            raise NotImplementedError(
+                f"{name}={value!r}: {what} is not ported to repro_torch yet")
+
+
+def serve(arch: str, smoke: bool, batch: int, prompt_len: int, gen_len: int,
+          weight_bits: Optional[int], seed: int = 0, int8: bool = False,
+          packed: bool = False,
+          int8_compute: bool = False, n_requests: Optional[int] = None,
+          rate: float = 1.0, sampling: Optional[SamplingParams] = None,
+          prefill_chunk: int = 32, decode_burst: int = 16,
+          clock: str = "steps", paged: bool = False, page_size: int = 16,
+          kv_bits: Optional[int] = None, kv_pages: Optional[int] = None,
+          prefix_sharing: bool = True, shared_prefix: int = 0,
+          tp: int = 1, group_size: Optional[int] = None,
+          moe_dispatch: str = "grouped",
+          trace_path: Optional[str] = None,
+          events_path: Optional[str] = None,
+          metrics_file: Optional[str] = None,
+          metrics_port: Optional[int] = None, drain_every: int = 8,
+          drift_every: int = 0, drift_stale: float = 1.0,
+          drift_threshold: float = 1.5, spec_k: int = 0,
+          spec_bits: Optional[str] = None,
+          spec_kv_bits: Optional[int] = None,
+          device: DeviceLike = None) -> Dict:
+    """Build the model and engine on ``device`` (default: the GPU) and run
+    the load. Returns the timings and ``metrics``, the finished
+    ``requests``, the realized ``weight_bytes``, the ``engine`` (for
+    further runs on the same weights) and, closed-loop, the
+    ``generated`` (B, G) matrix."""
+    sampling = sampling or SamplingParams()
+    _refuse_unported(
+        tp=tp, spec_k=spec_k, spec_bits=spec_bits, spec_kv_bits=spec_kv_bits,
+        trace_path=trace_path, events_path=events_path,
+        metrics_file=metrics_file, metrics_port=metrics_port,
+        drain_every=drain_every, drift_every=drift_every,
+        drift_stale=drift_stale, drift_threshold=drift_threshold,
+        temperature=sampling.temperature, top_k=sampling.top_k,
+        top_p=sampling.top_p)
+    dev = resolve_device(device)
+    cfg = smoke_config(arch) if smoke else get_config(arch)
+    if int8 or packed or paged:
+        # per-layer scales / page pools / payload shapes are path-keyed
+        cfg = dataclasses.replace(cfg, scan_layers=False)
+    params = init_params(cfg, seed=seed, device=dev)
+
+    scales = None
+    policy = QuantPolicy()
+    if (int8 or packed) and weight_bits is None:
+        weight_bits = 8          # --int8/--packed alone means W8 storage
+    if weight_bits is not None and weight_bits < 16:
+        if packed:
+            params, _ = quantize_params(params, weight_bits, policy,
+                                        group_size=group_size, device=dev)
+            log.info("packed QTensor weights: %.0f bytes realized",
+                     weight_storage_bytes(params))
+        elif int8:
+            params, scales = quantize_params_int8(params, weight_bits, policy,
+                                                  device=dev)
+        else:
+            params = quantize_weights(params, weight_bits, policy)
+
+    if n_requests is None:
+        reqs = trace_requests(cfg, [(0.0, prompt_len, gen_len)] * batch,
+                              sampling=sampling, seed=seed,
+                              prefix_len=shared_prefix)
+    else:
+        reqs = poisson_requests(
+            cfg, n_requests, rate,
+            prompt_len=(max(1, prompt_len // 2), prompt_len),
+            gen_len=(max(1, gen_len // 2), gen_len),
+            sampling=sampling, seed=seed, prefix_len=shared_prefix)
+
+    max_len = prompt_len + gen_len
+    if paged:
+        max_len = -(-max_len // page_size) * page_size    # page multiple
+    ecfg = EngineConfig(
+        max_slots=batch, max_len=max_len, max_new_tokens=gen_len,
+        prefill_chunk=min(prefill_chunk, max(prompt_len, 1)),
+        decode_burst=decode_burst, clock=clock, int8_compute=int8_compute,
+        kv_cache="paged" if paged else "dense", page_size=page_size,
+        kv_pages=kv_pages, prefix_sharing=prefix_sharing,
+        moe_dispatch=moe_dispatch)
+    engine = Engine(params, cfg, ecfg, scales=scales, kv_bits=kv_bits,
+                    device=dev)
+    finished, metrics = engine.run(reqs)
+    summ = metrics.summary()
+
+    out = {
+        "prefill_s": metrics.prefill_s,
+        "decode_s": metrics.decode_s,
+        "tokens_per_s": summ["decode_tokens_per_s"] or 0.0,
+        "metrics": summ,
+        "requests": finished,
+        "weight_bytes": weight_storage_bytes(params),
+        "engine": engine,
+    }
+    if n_requests is None:
+        # closed-loop: uniform lengths -> dense (B, G) matrix
+        out["generated"] = np.stack([r.output_tokens for r in finished])
+    log.info("%s slots=%d bits=%s%s | prefill %.2fs, decode %.2fs "
+             "(%.1f tok/s, occupancy %.0f%%)", cfg.name, batch, weight_bits,
+             " int8" if int8 else "", metrics.prefill_s, metrics.decode_s,
+             out["tokens_per_s"], 100 * (summ["slot_occupancy"] or 0))
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=8,
+                    help="slot count (batch capacity)")
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen-len", type=int, default=32)
+    ap.add_argument("--weight-bits", type=int, default=None)
+    ap.add_argument("--int8", action="store_true",
+                    help="int8-backed storage + DequantContext")
+    ap.add_argument("--packed", action="store_true",
+                    help="packed QTensor storage (sub-byte widths shrink "
+                         "weight memory; repro_torch.qtensor)")
+    ap.add_argument("--int8-compute", action="store_true",
+                    help="route quantized blocks through the integer kernels")
+    ap.add_argument("--requests", type=int, default=None,
+                    help="open-loop: number of Poisson requests")
+    ap.add_argument("--rate", type=float, default=1.0,
+                    help="open-loop arrival rate (requests per clock unit)")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV cache (repro_torch.kvcache): page pool + "
+                         "prefix sharing instead of the dense per-slot cache")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="KV page size in tokens (paged mode)")
+    ap.add_argument("--kv-bits", type=int, default=None,
+                    help="uniform KV storage width: 16 (fp), 8 (int8), "
+                         "4 (packed int4)")
+    ap.add_argument("--kv-pages", type=int, default=None,
+                    help="page-pool size (default: full slot capacity)")
+    ap.add_argument("--no-prefix-sharing", action="store_true")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="give all generated prompts a common prefix of "
+                         "this many tokens (exercises prefix sharing)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree (not ported yet)")
+    ap.add_argument("--group-size", type=int, default=None,
+                    help="scale-group size along the reduction axis for "
+                         "--packed")
+    ap.add_argument("--moe-dispatch",
+                    choices=("grouped", "dense", "einsum"),
+                    default="grouped",
+                    help="MoE expert dispatch for quantized stacks: one "
+                         "grouped ragged kernel per projection (default), "
+                         "the dense per-expert qmm loop (bit-identical "
+                         "oracle), or the fp-dequant einsum fallback")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative decoding (not ported yet)")
+    ap.add_argument("--spec-bits", default=None,
+                    help="speculative draft widths (not ported yet)")
+    ap.add_argument("--spec-kv-bits", type=int, default=None,
+                    help="speculative draft KV width (not ported yet)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampled decoding (not ported yet: 0 only)")
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--top-p", type=float, default=1.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--clock", choices=("steps", "wall"), default="steps")
+    ap.add_argument("--json", default=None, help="write metrics JSON here")
+    # ---- observability (not ported yet) ----
+    ap.add_argument("--trace", default=None, metavar="PATH")
+    ap.add_argument("--events", default=None, metavar="PATH")
+    ap.add_argument("--metrics-file", default=None, metavar="PATH")
+    ap.add_argument("--metrics-port", type=int, default=None)
+    ap.add_argument("--drain-every", type=int, default=8)
+    ap.add_argument("--drift-every", type=int, default=0)
+    ap.add_argument("--drift-stale", type=float, default=1.0)
+    ap.add_argument("--drift-threshold", type=float, default=1.5)
+    args = ap.parse_args()
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname).1s %(name)s] "
+                               "%(message)s", datefmt="%H:%M:%S")
+
+    out = serve(args.arch, args.smoke, args.batch, args.prompt_len,
+                args.gen_len, args.weight_bits, seed=args.seed,
+                int8=args.int8, packed=args.packed,
+                int8_compute=args.int8_compute,
+                n_requests=args.requests, rate=args.rate,
+                sampling=SamplingParams(temperature=args.temperature,
+                                        top_k=args.top_k, top_p=args.top_p,
+                                        seed=args.seed),
+                clock=args.clock, paged=args.paged, page_size=args.page_size,
+                kv_bits=args.kv_bits, kv_pages=args.kv_pages,
+                prefix_sharing=not args.no_prefix_sharing,
+                shared_prefix=args.shared_prefix, tp=args.tp,
+                group_size=args.group_size,
+                moe_dispatch=args.moe_dispatch, trace_path=args.trace,
+                events_path=args.events, metrics_file=args.metrics_file,
+                metrics_port=args.metrics_port,
+                drain_every=args.drain_every,
+                drift_every=args.drift_every, drift_stale=args.drift_stale,
+                drift_threshold=args.drift_threshold, spec_k=args.spec_k,
+                spec_bits=args.spec_bits, spec_kv_bits=args.spec_kv_bits)
+    dump = {"metrics": out["metrics"]}
+    print(json.dumps(dump, indent=2))
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(dump, f, indent=2)
+
+
+if __name__ == "__main__":
+    main()

@@ -13,7 +13,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs import ModelConfig
-from repro_torch.kernels.ref import NEG_INF, decode_read
+from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import apply_rope, init_dense
 
 
@@ -106,28 +106,77 @@ def _qkv_decode(x, p, cfg, ctx, posb):
     return q, knew, vnew
 
 
+def _write_dense(pairs, rows: torch.Tensor, posb: torch.Tensor) -> None:
+    """c[rows, posb] = new in place for each (c, new) of ``pairs``, with
+    writes at positions >= T dropped as the reference's scatter drops them
+    (a slot riding a decode burst past its last position), and no host
+    sync: a dropped write lands on T-1 carrying the value T-1 ends with
+    anyway — the in-range write to T-1 of the same call, or else the
+    value already there."""
+    t, tq = pairs[0][0].shape[1], posb.shape[1]
+    valid = (posb < t)[..., None, None]
+    wpos = torch.clamp(posb, max=t - 1)
+    ar = rows[:, 0]
+    if tq > 1:
+        jlast = torch.clamp(t - 1 - posb[:, 0], 0, tq - 1)
+        hit = ((posb[:, 0] <= t - 1) & (posb[:, -1] >= t - 1))[:, None, None, None]
+    for c, new in pairs:
+        new = new.to(c.dtype)
+        if tq == 1:
+            last = c[rows, wpos]
+        else:
+            last = torch.where(hit, new[ar, jlast][:, None], c[ar, t - 1][:, None])
+        c[rows, wpos] = torch.where(valid, new, last)
+
+
 def attention_decode(x: torch.Tensor, p: Dict, cfg: ModelConfig, ctx,
                      cache: KVCache, pos: torch.Tensor
                      ) -> Tuple[torch.Tensor, KVCache]:
     """Decode x: (B, T, D) at consecutive positions against a dense cache
     (B, T_max, KV, Dh) in the model dtype. ``pos`` is a () scalar or a
-    (B,) per-slot vector; row b's tokens land at pos[b] .. pos[b]+T-1."""
+    (B,) per-slot vector; row b's tokens land at pos[b] .. pos[b]+T-1.
+
+    The read goes through ``ops.paged_attention`` with the cache viewed
+    as pages of ``dense_page_size(T_max)`` tokens and an identity page
+    table: on the card a dense cache and a paged pool of 16-token pages
+    holding the same values read through one kernel, bit for bit; on
+    the CPU the plain version equals the reference's dense read."""
     b, tq = x.shape[0], x.shape[1]
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    g = h // kv
     offs = torch.arange(tq, dtype=torch.int64, device=x.device)
     posb = (pos.reshape(-1, 1).to(torch.int64) + offs[None, :]).expand(b, tq)
     q, knew, vnew = _qkv_decode(x, p, cfg, ctx, posb)
     rows = torch.arange(b, device=x.device)[:, None].expand(b, tq)
-    cache.k[rows, posb] = knew.to(cache.k.dtype)
-    cache.v[rows, posb] = vnew.to(cache.v.dtype)
-    qg = (q.reshape(b, tq, kv, g, hd).permute(0, 2, 1, 3, 4)
-          .reshape(b, kv, tq * g, hd))
-    o = decode_read(qg, cache.k, cache.v, posb)
-    o = (o.reshape(b, kv, tq, g, hd).permute(0, 2, 1, 3, 4)
-         .reshape(b, tq, h * hd))
+    _write_dense(((cache.k, knew), (cache.v, vnew)), rows, posb)
+    t = cache.k.shape[1]
+    page = dense_page_size(t)
+    kp = cache.k.reshape((b * t // page, page) + tuple(cache.k.shape[2:]))
+    vp = cache.v.reshape(kp.shape)
+    table = torch.arange(kp.shape[0], dtype=torch.int32,
+                         device=x.device).reshape(b, t // page)
+    o = _paged_read(q, kp, vp, table, posb).to(x.dtype)
     o = ctx.tap("attn_out", o)
     return ctx.matmul("wo", o, p["wo"]), cache
+
+
+def _paged_read(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                table: torch.Tensor, posb: torch.Tensor, k_scale=None,
+                v_scale=None, bits: int = 16) -> torch.Tensor:
+    """q: (B, T, H, Dh) at positions posb (B, T) -> (B, T, H*Dh): one
+    ``ops.paged_attention`` call per query column over the pages."""
+    from repro_torch.kernels import ops as kops
+
+    b, tq = posb.shape
+    outs = [kops.paged_attention(q[:, j:j + 1], k, v, table, posb[:, j],
+                                 k_scale, v_scale, bits) for j in range(tq)]
+    o = outs[0] if tq == 1 else torch.stack(outs, dim=1)
+    return o.reshape(b, tq, -1)
+
+
+def dense_page_size(t: int) -> int:
+    """Page size of a dense cache of ``t`` positions read as pages: 16
+    (the paged engine's default) when it divides ``t``, else the largest
+    divisor of ``t`` below 16."""
+    return next(d for d in range(min(16, t), 0, -1) if t % d == 0)
 
 
 def attention_decode_paged(x: torch.Tensor, p: Dict, cfg: ModelConfig, ctx,
@@ -141,11 +190,9 @@ def attention_decode_paged(x: torch.Tensor, p: Dict, cfg: ModelConfig, ctx,
     touches a recycled page. The read walks the page table through
     ``ops.paged_attention``.
     """
-    from repro_torch.kernels import ops as kops
     from repro_torch.kvcache.paged import quantize_kv, write_tokens
 
     b, tq = x.shape[0], x.shape[1]
-    h, hd = cfg.num_heads, cfg.head_dim
     posb = pos.reshape(-1, 1).to(torch.int64) \
         + torch.arange(tq, dtype=torch.int64, device=x.device)[None, :]
     q, knew, vnew = _qkv_decode(x, p, cfg, ctx, posb)
@@ -165,10 +212,7 @@ def attention_decode_paged(x: torch.Tensor, p: Dict, cfg: ModelConfig, ctx,
         kq = knew.to(lp.k.dtype)
         vq = vnew.to(lp.v.dtype)
     write_tokens(lp, pid, off, kq, vq)
-    outs = [kops.paged_attention(q[:, j:j + 1], lp.k, lp.v, table, posb[:, j],
-                                 lp.k_scale, lp.v_scale, lp.bits)
-            for j in range(tq)]
-    o = outs[0] if tq == 1 else torch.stack(outs, dim=1)
-    o = o.reshape(b, tq, h * hd).to(x.dtype)
+    o = _paged_read(q, lp.k, lp.v, table, posb, lp.k_scale, lp.v_scale,
+                    lp.bits).to(x.dtype)
     o = ctx.tap("attn_out", o)
     return ctx.matmul("wo", o, p["wo"]), lp

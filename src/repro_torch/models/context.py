@@ -8,14 +8,15 @@ activation site ``ctx.tap(name, a)``; names are scoped with
   * ``Context``         — identity (plain forward)
   * ``TapContext``      — adds a zero-valued tap tensor (FIT activation EF)
   * ``CollectContext``  — records activation values (shapes, ranges)
-  * ``DequantContext``  — packed QTensor weights: ``matmul`` quantizes the
-                          activation per row and runs the ``qmm`` kernel
-                          (``int8_compute=True``) or dequantizes the weight
-                          at the point of use; ``expert_matmul`` runs packed
-                          MoE expert stacks through ``grouped_qmm``
+  * ``DequantContext``  — quantized weights: packed QTensors (``matmul``
+                          quantizes the activation per row and runs the
+                          ``qmm`` kernel with ``int8_compute=True``, else
+                          dequantizes at the point of use;
+                          ``expert_matmul`` runs packed MoE expert stacks
+                          through ``grouped_qmm``) or int8-backed leaves
+                          with path-keyed scales (``int8_matmul``)
 
-The QAT, legacy int8 and tensor-parallel routes of the reference are
-not ported yet.
+The QAT and tensor-parallel routes of the reference are not ported yet.
 """
 from __future__ import annotations
 
@@ -89,10 +90,13 @@ class CollectContext(Context):
 
 
 class DequantContext(Context):
-    """Serve-time execution over packed QTensor weights.
+    """Serve-time execution over quantized weights, in one of two forms:
+    packed QTensor leaves (``serve.quantized.quantize_params``, the
+    ``qmm`` route) or int8-backed leaves with a path-keyed ``scales``
+    dict (``quantize_params_int8``, the ``int8_matmul`` route).
 
-    With ``int8_compute=True`` a 2-D QTensor block quantizes its input
-    with a dynamic per-ROW scale and dispatches to ``ops.qmm``: row b's
+    With ``int8_compute=True`` a 2-D block quantizes its input with a
+    dynamic per-ROW scale and dispatches to the integer kernel: row b's
     numerics depend only on row b, which keeps continuous-batching
     output bit-identical to isolated decode. Otherwise the weight is
     dequantized at the point of use.
@@ -102,10 +106,7 @@ class DequantContext(Context):
                  int8_compute: bool = False, moe_dispatch: str = "grouped",
                  scope_prefix: str = ""):
         super().__init__(scope_prefix)
-        if scales:
-            raise NotImplementedError(
-                "legacy int8 leaves with path-keyed scales are not ported; "
-                "use packed QTensor storage (serve.quantized.quantize_params)")
+        self.scales = dict(scales) if scales else {}
         if moe_dispatch not in ("grouped", "dense", "einsum"):
             raise ValueError(f"moe_dispatch must be grouped|dense|einsum, "
                              f"got {moe_dispatch!r}")
@@ -125,27 +126,42 @@ class DequantContext(Context):
     def qw(self, name: str, w):
         if isinstance(w, QTensor):
             return w.dequantize(self.dtype)
-        return w
+        s = self.scales.get(self.path(name))
+        if s is None or w.dtype != torch.int8:
+            return w
+        return (w.to(torch.float32) * s).to(self.dtype)
+
+    def _rows_through(self, x: torch.Tensor, n: int, kernel) -> torch.Tensor:
+        """Quantize x's rows and run ``kernel(xq, xs)`` -> (M, n) fp32."""
+        lead = x.shape[:-1]
+        xq, xs = self._rowquant(x.reshape(-1, x.shape[-1]).to(torch.float32))
+        return kernel(xq, xs).to(self.dtype).reshape(lead + (n,))
 
     def matmul(self, name: str, x: torch.Tensor, w) -> torch.Tensor:
         from repro_torch.kernels import ops as kops
         if isinstance(w, QTensor):
             if not self.int8_compute or len(w.shape) != 2:
                 return x @ w.dequantize(self.dtype)
-            lead = x.shape[:-1]
-            xq, xs = self._rowquant(x.reshape(-1, x.shape[-1]).to(torch.float32))
-            y = kops.qmm(xq, w, xs, out_dtype=torch.float32)
-            return y.to(self.dtype).reshape(lead + (w.shape[-1],))
-        return x @ w
+            return self._rows_through(x, w.shape[-1],
+                                      lambda xq, xs: kops.qmm(xq, w, xs))
+        s = self.scales.get(self.path(name))
+        if s is None or w.dtype != torch.int8:
+            return x @ w
+        if not self.int8_compute or w.ndim != 2:
+            return x @ (w.to(torch.float32) * s).to(self.dtype)
+        return self._rows_through(
+            x, w.shape[-1],
+            lambda xq, xs: kops.int8_matmul(xq, w, xs, s.reshape(1, -1)))
 
     def expert_matmul(self, name: str, buf: torch.Tensor, w,
                       counts: torch.Tensor) -> torch.Tensor:
         """Packed expert stacks go to the grouped ragged kernel
         (``moe_dispatch="grouped"``) or to the per-expert ``qmm`` loop
         (``"dense"``, the bit-identity oracle, masked to exact 0.0 past
-        the counts); fp weights, shared-scale stacks and ``"einsum"``
-        take the fp-dequant einsum. Rows are quantized with the same
-        per-row scales as ``matmul``."""
+        the counts); fp weights, shared-scale stacks, int8-backed stacks
+        (dequantized by ``qw``) and ``"einsum"`` take the fp-dequant
+        einsum. Rows are quantized with the same per-row scales as
+        ``matmul``."""
         from repro_torch.kernels import ops as kops
         if (not isinstance(w, QTensor) or not self.int8_compute
                 or len(w.shape) != 3 or self.moe_dispatch == "einsum"

@@ -8,23 +8,30 @@
 
 A request is prefilled alone (batch 1) in chunks into a dense scratch
 state, then inserted into its slot: copied into the dense batched cache,
-or scattered into freshly allocated pages (``kv_cache="paged"``). Decode
-bursts run ``decode_step`` over all slots; inactive slots ride along
-with frozen positions (paged writes past a slot's limit are dropped).
+or scattered into freshly allocated pages (``kv_cache="paged"``). With
+prefix sharing (paged, the default) admission first matches the prompt
+against resident pages: matched full pages are shared by reference, the
+scratch state is seeded from them and only the suffix is prefilled; a
+partially matched boundary page is copied (copy-on-write) before the
+suffix is written into it. Decode bursts run ``decode_step`` over all
+slots; inactive slots ride along with frozen positions (writes past a
+slot's limit or past the dense cache are dropped).
 Every batch row is computed independently — per-row activation scales
 on the ``qmm`` route, per-row cache writes and masks — so a request's
 tokens equal those of the same request served alone.
 
-Ported: greedy decoding, dense and paged KV, chunked prefill interleaved
-with decode, page-table growth, eviction and backfill, admission
-deferral when the page pool is full; the dense and MoE families (MoE
-expert stacks through ``grouped_qmm``, or the per-expert ``qmm`` loop or
-the fp einsum, by ``moe_dispatch``). On the MoE path the row
-independence above stops at the experts' capacity, which couples a
-token to its batch-mates as it does in the reference. Not yet ported
-(raise ``NotImplementedError``): sampled decoding, prefix sharing /
-copy-on-write, speculative decoding, observability, tensor parallelism
-and the ssm, hybrid, audio and vlm families.
+Ported: greedy decoding, dense and paged KV, prefix sharing and
+copy-on-write, chunked prefill interleaved with decode, page-table
+growth, eviction and backfill, admission deferral when the page pool is
+full; packed QTensor and int8-backed (path-keyed ``scales``) weights;
+the dense and MoE families (MoE expert stacks through ``grouped_qmm``,
+or the per-expert ``qmm`` loop or the fp einsum, by ``moe_dispatch``).
+On the MoE path the row independence above stops at the experts'
+capacity, which couples a token to its batch-mates as it does in the
+reference. Not yet ported
+(raise ``NotImplementedError``): sampled decoding, speculative
+decoding, observability, tensor parallelism and the ssm, hybrid, audio
+and vlm families.
 """
 from __future__ import annotations
 
@@ -42,14 +49,16 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs import ModelConfig
 from repro_torch.kvcache.allocator import BlockAllocator
 from repro_torch.kvcache.paged import (
-    PagedKVConfig, kv_layer_count, page_bytes_all_layers, scatter_span)
-from repro_torch.models.context import Context, DequantContext
+    PagedKVConfig, copy_page, gather_layer, kv_layer_count,
+    page_bytes_all_layers, scatter_span)
+from repro_torch.models.context import Context
 from repro_torch.models.decode import (
     DecodeState, decode_step, init_decode_state, init_paged_decode_state,
     prefill_into, state_insert_slot)
 from repro_torch.models.transformer import require_ported_family
 from repro_torch.qtensor import tree_has_qtensor
 from repro_torch.serve.metrics import EngineMetrics
+from repro_torch.serve.quantized import make_dequant_context
 from repro_torch.serve.request import Request, RequestStatus
 from repro_torch.serve.sampling import greedy_tokens
 from repro_torch.utils.pytree import map_with_names
@@ -68,7 +77,7 @@ class EngineConfig:
     decode_burst: int = 16        # decode steps per burst
     interleave_steps: int = 4     # decode steps run between prefill chunks
     clock: str = "steps"          # "steps" (deterministic) | "wall" (seconds)
-    int8_compute: bool = False    # route QTensor blocks through ops.qmm
+    int8_compute: bool = False    # quantized blocks through ops.qmm / int8_matmul
     # packed MoE expert stacks (int8_compute only): "grouped" (one
     # grouped_qmm per projection), "dense" (per-expert qmm loop, the
     # bit-identity oracle) or "einsum" (fp-dequant batched einsum)
@@ -77,26 +86,19 @@ class EngineConfig:
     kv_cache: str = "dense"       # "dense" | "paged"
     page_size: int = 16
     kv_pages: Optional[int] = None
-    prefix_sharing: bool = False  # not ported yet: True raises
+    prefix_sharing: bool = True   # paged: share prompt prefixes (COW)
     # ---- not ported yet: anything but None raises ----
     mesh: Optional[object] = None
     obs: Optional[object] = None
     spec: Optional[object] = None
 
 
-def _check_supported(cfg: ModelConfig, ecfg: EngineConfig, scales) -> None:
+def _check_supported(cfg: ModelConfig, ecfg: EngineConfig) -> None:
     for field in ("spec", "obs", "mesh"):
         if getattr(ecfg, field) is not None:
             raise NotImplementedError(
                 f"EngineConfig.{field} is not ported to repro_torch yet")
-    if ecfg.prefix_sharing:
-        raise NotImplementedError(
-            "prefix sharing / copy-on-write is not ported yet "
-            "(EngineConfig(prefix_sharing=False))")
     require_ported_family(cfg)
-    if scales:
-        raise NotImplementedError(
-            "legacy int8 + scales storage is not ported; use quantize_params")
     if ecfg.kv_cache not in ("dense", "paged"):
         raise ValueError(f"kv_cache must be dense|paged, got {ecfg.kv_cache!r}")
     if ecfg.clock not in ("steps", "wall"):
@@ -110,19 +112,21 @@ class Engine:
                  scales=None, kv_bits=None,
                  kv_ranges: Optional[Mapping] = None,
                  device: DeviceLike = None):
-        """``kv_bits`` (paged): None/int uniform or {layer -> bits} from
-        ``kvcache.fit.allocate_kv_bits``; ``kv_ranges``: calibrated
-        activation ranges for the per-page scales. ``device`` defaults to
-        the GPU."""
-        _check_supported(cfg, ecfg, scales)
+        """``scales``: the path-keyed scales of int8-backed weights
+        (``quantize_params_int8``). ``kv_bits`` (paged): None/int uniform
+        or {layer -> bits} from ``kvcache.fit.allocate_kv_bits``;
+        ``kv_ranges``: calibrated activation ranges for the per-page
+        scales. ``device`` defaults to the GPU."""
+        _check_supported(cfg, ecfg)
         self.device = resolve_device(device)
         self.params = map_with_names(lambda _, leaf: leaf.to(self.device), params)
+        self.scales = {k: v.to(self.device) for k, v in (scales or {}).items()}
         self.cfg = cfg
         self.ecfg = ecfg
-        self._ctx = (DequantContext(None, cfg.param_dtype,
-                                    int8_compute=ecfg.int8_compute,
-                                    moe_dispatch=ecfg.moe_dispatch)
-                     if tree_has_qtensor(params) else Context())
+        self._ctx = (make_dequant_context(cfg, self.scales,
+                                          int8_compute=ecfg.int8_compute,
+                                          moe_dispatch=ecfg.moe_dispatch)
+                     if tree_has_qtensor(params) or self.scales else Context())
         self._paged = ecfg.kv_cache == "paged"
         self._pcfg: Optional[PagedKVConfig] = None
         self._kv_ranges = dict(kv_ranges) if kv_ranges else None
@@ -177,7 +181,7 @@ class Engine:
         if self._paged:
             self._alloc = BlockAllocator(self._pcfg.num_pages,
                                          self._pcfg.page_size,
-                                         prefix_sharing=False)
+                                         prefix_sharing=ecfg.prefix_sharing)
             self._rows: List[List[int]] = [[] for _ in range(S)]
             self._pos_h = np.zeros(S, np.int64)
             self._limit_h = np.zeros(S, np.int64)
@@ -237,24 +241,49 @@ class Engine:
 
     # ------------------------------------------------------------------
     def _plan_pages(self, slot: int, req: Request):
-        """Allocate the prompt's pages and reserve its decode growth;
-        None (admission deferred) if the pool cannot cover both."""
+        """Allocator side of paged admission: match the prompt's prefix
+        against resident pages, claim/allocate, and reserve the decode
+        growth. Returns ``(shared_len, partial_src, row, gather_ids)``,
+        or None (admission deferred) if the pool cannot also cover the
+        request's worst-case decode."""
         alloc, page = self._alloc, self._pcfg.page_size
         plen = req.prompt_len
         limit = min(plen + req.max_new_tokens, self.ecfg.max_len)
         total_pages = -(-limit // page)
+        # at least one prompt token is always prefilled (cap plen - 1)
+        full_ids, shared_len, partial_src = alloc.match_prefix(
+            np.asarray(req.prompt), plen - 1)
         n_prompt_pages = -(-plen // page)
+        new_now = n_prompt_pages - len(full_ids)
         future = total_pages - n_prompt_pages
-        if alloc.available() < n_prompt_pages + future:
+        if alloc.available() < new_now + future:
             return None
-        row = alloc.allocate(n_prompt_pages)
+        alloc.claim(full_ids)
+        fresh = alloc.allocate(new_now)
         alloc.reserve(slot, future)
-        return row
+        alloc.shared_tokens += shared_len
+        if partial_src is not None:
+            alloc.cow_copies += 1
+        row = list(full_ids) + list(fresh)
+        gather_ids = list(full_ids) + ([partial_src]
+                                       if partial_src is not None else [])
+        return shared_len, partial_src, row, gather_ids
 
     def _pad_row(self, ids: List[int]) -> torch.Tensor:
         row = np.full(self._pcfg.pages_per_slot, self._pcfg.num_pages, np.int32)
         row[:len(ids)] = ids
         return torch.as_tensor(row).to(self.device)
+
+    def _gather_prefix(self, pstate: DecodeState, row: torch.Tensor,
+                       shared_len: int) -> None:
+        """Shared prefix pages -> the dense batch-1 scratch cache (in
+        place): suffix prefill attends to it without recomputation."""
+        for i in range(self._n_kv_layers):
+            kg, vg = gather_layer(self._state.paged.layers[str(i)], row,
+                                  shared_len, self.cfg.param_dtype)
+            pstate.kv.k[i, 0] = kg
+            pstate.kv.v[i, 0] = vg
+        pstate.pos.fill_(shared_len)
 
     def _admit(self, req: Request) -> bool:
         ecfg, cfg = self.ecfg, self.cfg
@@ -268,19 +297,24 @@ class Engine:
             log.warning("request %d: max_new_tokens %d clipped to %d",
                         req.id, req.max_new_tokens, budget)
             req.max_new_tokens = budget
-        row = None
+        shared_len, partial_src, row, gather_ids = 0, None, None, None
         if self._paged:
-            row = self._plan_pages(slot, req)
-            if row is None:
+            plan = self._plan_pages(slot, req)
+            if plan is None:
                 return False
+            shared_len, partial_src, row, gather_ids = plan
         req.slot, req.status = slot, RequestStatus.PREFILLING
         req.t_admitted = self._now()
 
         pstate = init_decode_state(cfg, 1, ecfg.max_len, device=self.device)
+        if shared_len > 0:
+            # prefix reuse: seed the scratch cache from the shared pages
+            # and prefill only the suffix
+            self._gather_prefix(pstate, self._pad_row(gather_ids), shared_len)
         prompt = torch.as_tensor(np.asarray(req.prompt, np.int32))[None].to(
             self.device)
         logits = None
-        for lo in range(0, req.prompt_len, ecfg.prefill_chunk):
+        for lo in range(shared_len, req.prompt_len, ecfg.prefill_chunk):
             chunk = prompt[:, lo:lo + ecfg.prefill_chunk]
             t0 = time.perf_counter()
             logits, pstate = prefill_into(self.params, pstate, chunk, cfg,
@@ -303,16 +337,26 @@ class Engine:
             limit = min(plen + req.max_new_tokens, ecfg.max_len)
             drow = self._pad_row(row)
             ps = st.paged
+            if partial_src is not None:
+                # copy-on-write: own the partially filled boundary page
+                # before the suffix insert writes into it
+                dst = row[len(gather_ids) - 1]
+                for lp in ps.layers.values():
+                    copy_page(lp, partial_src, dst)
+            # tokens < shared_len are already in the shared pages
             for i in range(self._n_kv_layers):
                 scatter_span(ps.layers[str(i)], drow, pstate.kv.k[i, 0],
-                             pstate.kv.v[i, 0], 0, plen)
+                             pstate.kv.v[i, 0], shared_len, plen)
             st.pos[slot] = plen
             ps.table[slot] = drow
             ps.write_limit[slot] = limit
-            self._rows[slot] = list(row)
+            self._alloc.register_prompt(np.asarray(req.prompt), row, plen)
+            self._rows[slot] = row
             self._pos_h[slot] = plen
             self._limit_h[slot] = limit
             self.metrics.record_kv_usage(self._alloc.pages_in_use)
+            self.metrics.kv_shared_tokens = self._alloc.shared_tokens
+            self.metrics.kv_cow_copies = self._alloc.cow_copies
         else:
             state_insert_slot(cfg, st, pstate, slot)
         self._tok[slot] = tok0

@@ -1,12 +1,19 @@
-"""Materialize a FIT-derived ``BitConfig`` as packed QTensor storage
-(port of ``repro.serve.quantized``).
+"""Materialize a FIT-derived ``BitConfig`` as quantized storage
+(port of ``repro.serve.quantized``), in one of two formats:
 
-``quantize_params`` turns every matmul block the config quantizes into a
-packed QTensor (int8 at W8, 4-values-in-3-bytes at W6, nibbles at W4/W3)
-with per-output-channel, optionally per-group, scales — 3-D MoE expert
-stacks with per-expert scales (``quantize_experts``); the engine runs
-them through ``DequantContext``. The legacy int8-backed format and the
-tensor-parallel placement wait for later slices.
+  * ``quantize_params`` — every matmul block the config quantizes
+    becomes a packed QTensor (int8 at W8, 4-values-in-3-bytes at W6,
+    nibbles at W4/W3) with per-output-channel, optionally per-group,
+    scales; 3-D MoE expert stacks get per-expert scales
+    (``quantize_experts``). ``DequantContext`` runs them through ``qmm``.
+  * ``quantize_params_int8`` — the int8-backed format: every quantized
+    block is int8 with per-channel scales in a path-keyed dict, a b-bit
+    block on the ±(2^(b-1)-1) sub-grid (no storage saved below 8 bits).
+    ``DequantContext`` runs them through ``int8_matmul``. At W8 with
+    default granularity the two formats dequantize identically.
+
+Both need the unrolled layout (``layers/<i>/...``). The tensor-parallel
+placement waits for a later slice.
 """
 from __future__ import annotations
 
@@ -21,8 +28,8 @@ from repro_torch.core.fit import SensitivityReport
 from repro_torch.core.mpq import greedy_allocate
 from repro_torch.models.context import DequantContext
 from repro_torch.qtensor import (
-    quantize as qt_quantize, quantize_experts as qt_quantize_experts,
-    tree_payload_bytes)
+    qmax_for_bits, quantize as qt_quantize,
+    quantize_experts as qt_quantize_experts, tree_payload_bytes)
 from repro_torch.quant.policy import BitConfig, QuantPolicy
 from repro_torch.utils.pytree import map_with_names, named_leaves
 
@@ -63,6 +70,14 @@ def _block_bits(bit_cfg: BitConfig, name: str, leaf,
     return b
 
 
+def _require_unrolled(params) -> None:
+    layers = params.get("layers")
+    if not (isinstance(layers, dict) and "0" in layers):
+        raise ValueError("quantized serving needs the unrolled parameter "
+                         "layout (layers/<i>/...): storage is keyed by "
+                         "block path, which a scan-stacked tree cannot give")
+
+
 def quantize_params(params, bits: Union[int, BitConfig],
                     policy: Optional[QuantPolicy] = None,
                     group_size: Optional[int] = None,
@@ -72,10 +87,7 @@ def quantize_params(params, bits: Union[int, BitConfig],
     ``device`` (default: the GPU). Returns ``(qparams, scales)`` with
     ``scales`` keyed by scoped path (reporting convenience)."""
     dev = resolve_device(device)
-    layers = params.get("layers")
-    if not (isinstance(layers, dict) and "0" in layers):
-        raise ValueError("quantized serving needs the unrolled parameter "
-                         "layout (layers/<i>/...)")
+    _require_unrolled(params)
     policy = policy or QuantPolicy()
     bit_cfg = _bit_config(params, bits, policy)
     scales: Dict[str, torch.Tensor] = {}
@@ -102,10 +114,54 @@ def quantize_params(params, bits: Union[int, BitConfig],
     return qparams, scales
 
 
+def quantize_params_int8(params, bits: Union[int, BitConfig],
+                         policy: Optional[QuantPolicy] = None,
+                         device: DeviceLike = None
+                         ) -> Tuple[Dict, Dict[str, torch.Tensor]]:
+    """Int8-backed PTQ on ``device`` (default: the GPU): every quantized
+    block stored as int8, a b-bit block on the ±(2^(b-1)-1) sub-grid —
+    the grid ``quantize_params`` packs, so both formats dequantize to the
+    same values. Returns ``(qparams, scales)``, scales keyed by scoped
+    path and shaped to broadcast against the weight: (1, N), and
+    (E, 1, N) for 3-D expert stacks."""
+    dev = resolve_device(device)
+    _require_unrolled(params)
+    policy = policy or QuantPolicy()
+    bit_cfg = _bit_config(params, bits, policy)
+    scales: Dict[str, torch.Tensor] = {}
+
+    def one(name, leaf):
+        leaf = leaf.to(dev)
+        b = _block_bits(bit_cfg, name, leaf, policy)
+        if b is None:
+            return leaf
+        qmax = qmax_for_bits(b)
+        w32 = leaf.to(torch.float32)
+        # expert stacks keep the expert dim in the scale, matching
+        # quantize_params' per-expert grids
+        red = (1,) if leaf.ndim == 3 else tuple(range(leaf.ndim - 1))
+        amax = torch.amax(torch.abs(w32), dim=red, keepdim=True)
+        scale = torch.clamp_min(amax, 1e-12) / qmax
+        scales[qw_path(name)] = scale
+        return torch.clamp(torch.round(w32 / scale), -qmax, qmax).to(torch.int8)
+
+    qparams = map_with_names(one, params)
+    log.info("int8 PTQ: %d blocks quantized", len(scales))
+    return qparams, scales
+
+
+def weight_storage_bytes(params) -> float:
+    """Realized weight-storage bytes of a tree: QTensor payloads packed
+    (with their scales), every other leaf at its dtype size — int8-backed
+    blocks at one byte per element."""
+    return float(tree_payload_bytes(params))
+
+
 def make_dequant_context(cfg: ModelConfig, scales=None,
                          int8_compute: bool = False,
                          moe_dispatch: str = "grouped") -> DequantContext:
-    return DequantContext(scales, cfg.param_dtype, int8_compute=int8_compute,
+    return DequantContext(dict(scales) if scales else {}, cfg.param_dtype,
+                          int8_compute=int8_compute,
                           moe_dispatch=moe_dispatch)
 
 

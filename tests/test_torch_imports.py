@@ -22,6 +22,8 @@ def _modules():
 def test_every_module_imports_without_jax_or_repro():
     mods = list(_modules())
     assert len(mods) > 30
+    assert {"repro_torch.kernels.int8_matmul", "repro_torch.quant.quantizer",
+            "repro_torch.launch", "repro_torch.launch.serve"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -86,3 +88,22 @@ def test_chip_smoke_uses_neither_jax_nor_repro(check):
                          text=True, env=env, cwd=str(CHIP_SMOKE.parent))
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_serve_cli_help_loads_neither_jax_nor_repro():
+    """``python -m repro_torch.launch.serve --help`` parses its flags with
+    only the port and torch loaded."""
+    code = ("import runpy, sys\n"
+            "sys.argv = ['serve', '--help']\n"
+            "try:\n"
+            "    runpy.run_module('repro_torch.launch.serve', run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
+            " or k == 'repro' or k.startswith('repro.'))\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={"PYTHONPATH": str(PKG.parent),
+                                         "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert "--int8-compute" in out.stdout and "--shared-prefix" in out.stdout

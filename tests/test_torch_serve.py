@@ -122,7 +122,7 @@ def test_entry_points_raise_without_gpu(packed, monkeypatch):
 
 
 @pytest.mark.parametrize("bad", [dict(spec=object()), dict(obs=object()),
-                                 dict(mesh=object()), dict(prefix_sharing=True)])
+                                 dict(mesh=object())])
 def test_unsupported_engine_options_raise(packed, bad):
     _, _, tcfg, tq = packed
     with pytest.raises(NotImplementedError):
