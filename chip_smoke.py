@@ -25,6 +25,15 @@ Phases, in order; any failure exits non-zero:
      with sharing == the dense cache == paged without sharing), and the
      CLI itself (python -m repro_torch.launch.serve --smoke ...) in a
      subprocess;
+  3d. the quantization library at full width (internlm2_1_8b): activation
+     ranges calibrated with MinMaxObserver/EmaObserver, every weight block
+     and activation fake-quantized through the STE (fake_quant and
+     fake_quant_per_channel, held bit for bit against the plain version),
+     and flash_attention on layer 0's causal q, k, v against the model's
+     chunked attention; counters reset just before and read just after;
+  3e. QAT training (W4A8) of internlm2_1_8b at full width and depth
+     through launch.train.train, the resume contract at full width and 2
+     layers, and the training CLI in a subprocess;
   4. print the kernels line and the main-path metrics;
   5. print {"ok": true, "device": {...}} as the last line.
 
@@ -421,6 +430,178 @@ def check_paged_attention(timer, gen, rows, b=4, kvh=8, g=2, dh=128, page=16,
         log(json.dumps(row))
 
 
+BF16_FLOPS = 989e12            # tensor cores, dense; fp16 the same
+
+# (name, shape); ragged sizes, internlm2_1_8b's square attention weight,
+# an MLP block and the embedding
+FQ_SHAPES = [("ragged 7", (7,)), ("ragged 300x257", (300, 257)),
+             ("wq 2048x2048", (2048, 2048)), ("w_up 2048x8192", (2048, 8192)),
+             ("embed 92544x2048", (92544, 2048))]
+FQ_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+FQ_SMALL = ("ragged 7", "ragged 300x257", "wq 2048x2048")
+
+
+def _fq_library(x, s, zp, axis, lv):
+    """torch.fake_quantize_per_{tensor,channel}_affine on the same grid
+    (integer zero points; timed only, the port never calls it)."""
+    if axis is None:
+        return lambda: torch.fake_quantize_per_tensor_affine(
+            x, s.reshape(()), zp.reshape(()).to(torch.int32), 0, int(lv))
+    s1, z1 = s.reshape(-1).contiguous(), zp.reshape(-1).to(torch.int32)
+    ax = axis % x.ndim
+    return lambda: torch.fake_quantize_per_channel_affine(
+        x, s1, z1, ax, 0, int(lv))
+
+
+def check_fake_quant(timer, gen, rows):
+    """Both fake-quant kernels against the plain version: ``torch.equal``
+    at every dtype (fp32/bf16/fp16), width (8/4/3 bits), grid (affine and
+    symmetric ``levels``) and granularity (per tensor; per channel along
+    the last axis and along axis 0, the square wq among them) on the
+    small and ragged shapes; at the MLP block and the embedding, bf16 W4
+    per tensor and W8 symmetric per channel on both axes, timed."""
+    from repro_torch.kernels import fake_quant as kmod, ref
+    from repro_torch.quant.quantizer import QuantSpec, quant_params
+
+    n_checked = 0
+    for name, shape in FQ_SHAPES:
+        x32 = torch.randn(shape, generator=gen, device="cuda") * 0.05
+        if name in FQ_SMALL:
+            grid = [(dt, b, sym, ax) for dt in FQ_DTYPES for b in (8, 4, 3)
+                    for sym in (False, True) for ax in (None, -1, 0)]
+        else:
+            grid = [(torch.bfloat16, 4, False, None),
+                    (torch.bfloat16, 8, True, -1), (torch.bfloat16, 8, True, 0)]
+        for dt, bits, sym, ax in grid:
+            if ax is not None and x32.ndim < 2:
+                continue
+            x = x32.to(dt)
+            spec = QuantSpec(bits=bits, symmetric=sym, channel_axis=ax)
+            s, zp = quant_params(x.float(), spec)
+            if ax is not None:
+                bshape = [1] * x.ndim
+                bshape[ax % x.ndim] = -1
+                s, zp = s.reshape(bshape), zp.reshape(bshape)
+            lv = float(spec.levels)
+            got = kmod.fake_quant(x, s, zp, bits, lv)
+            want = ref.fake_quant(x, s, zp, bits, lv)
+            torch.cuda.synchronize()
+            tag = (f"fake_quant {name} {str(dt)[6:]} W{bits} "
+                   f"{'sym' if sym else 'affine'} axis={ax}")
+            if not torch.equal(got, want):
+                err = (got.float() - want.float()).abs().max().item()
+                raise AssertionError(f"{tag}: differs from the plain version "
+                                     f"(max err {err})")
+            n_checked += 1
+            if name in FQ_SMALL and not (dt == torch.bfloat16 and bits == 8
+                                          and sym and ax in (None, 0)):
+                continue
+            kname = "fake_quant" if ax is None else "fake_quant_per_channel"
+            nbytes = 2 * x.numel() * x.element_size() + 8 * s.numel()
+            b_ms, b_by = bound_ms(nbytes, 6.0 * x.numel(), FP32_FLOPS)
+            row = {"kernel": kname,
+                   "shape": f"{name} {str(dt)[6:]} W{bits} "
+                            f"{'sym' if sym else 'affine'}"
+                            + ("" if ax is None else f" axis={ax}"),
+                   "max_abs_err": 0.0,
+                   "ms": timer(lambda: kmod.fake_quant(x, s, zp, bits, lv)),
+                   "plain_ms": timer(lambda: ref.fake_quant(x, s, zp, bits, lv)),
+                   "library_ms": timer(_fq_library(x, s, zp, ax, lv)),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            rows.append(row)
+            log(json.dumps(row))
+        del x32
+    log(f"fake_quant: {n_checked} shapes/dtypes/grids equal to the plain version")
+
+
+# (name, B, H, S, T, D, dtype, causal): the model's prefill shapes at 2048
+# and 4096 tokens, cross attention, causal S < T (bottom-right), ragged
+# S and T, fp32 at D=32 and fp16 at D=64
+FLASH_CASES = [
+    ("causal S=T=2048", 4, 16, 2048, 2048, 128, torch.bfloat16, True),
+    ("causal S=T=4096", 4, 16, 4096, 4096, 128, torch.bfloat16, True),
+    ("full S=256 T=2048", 4, 16, 256, 2048, 128, torch.bfloat16, False),
+    ("causal S=512 T=2048", 4, 16, 512, 2048, 128, torch.bfloat16, True),
+    ("causal ragged S=T=300", 2, 16, 300, 300, 128, torch.bfloat16, True),
+    ("full ragged S=77 T=300", 2, 16, 77, 300, 128, torch.bfloat16, False),
+    ("causal fp32 D=32", 2, 4, 256, 256, 32, torch.float32, True),
+    ("full fp16 D=64 S=100 T=384", 2, 8, 100, 384, 64, torch.float16, False),
+]
+
+
+def flash_pairs(s: int, t: int, causal: bool) -> int:
+    """Visible (query, key) pairs: with the causal mask aligned
+    bottom-right, query i sees keys j <= i + t - s."""
+    if not causal:
+        return s * t
+    return s * (s + 1) // 2 + s * (t - s)
+
+
+def check_flash_attention(timer, gen, rows):
+    """The flash kernel against the plain version on the same inputs,
+    element by element: |diff| <= rel·(A + |ref|) + 1e-6, with A = Σ_j
+    p_j·|v_j| (the plain version on |v| in fp32), the scale of the terms
+    each output sums. bf16/fp16: rel = 2^-7. Each version rounds every P
+    term to the input dtype (2^-9 relative; the kernel unnormalized
+    against its running max, the plain version after the softmax) and
+    its output (2^-9), so they may differ by 2^-8·(A + |ref|): the bound
+    is twice that. fp32: rel = 1e-5 (no rounding of P; exp and the sums
+    in other orders)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kmod, ref
+
+    for name, b, h, s, t, d, dt, causal in FLASH_CASES:
+        mk = lambda n: torch.randn((b, h, n, d), generator=gen,  # noqa: E731
+                                   device="cuda").to(dt)
+        q, k, v = mk(s), mk(t), mk(t)
+        got = kmod.flash_attention(q, k, v, causal=causal)
+        want = ref.flash_attention(q, k, v, causal=causal).float()
+        mag = ref.flash_attention(q.float(), k.float(), v.float().abs(),
+                                  causal=causal)
+        torch.cuda.synchronize()
+        diff = (got.float() - want).abs()
+        err = diff.max().item()
+        rel = 1e-5 if dt == torch.float32 else 2.0 ** -7
+        ratio = (diff / (rel * (mag + want.abs()) + 1e-6)).max().item()
+        del mag
+        if not (torch.isfinite(got).all() and ratio <= 1.0):
+            raise AssertionError(f"flash_attention {name}: max err {err}, "
+                                 f"{ratio:.3f} of the tolerance")
+        nbytes = (2 * s + 2 * t) * b * h * d * q.element_size()
+        peak = FP32_FLOPS if dt == torch.float32 else BF16_FLOPS
+        b_ms, b_by = bound_ms(nbytes, 4.0 * b * h * d * flash_pairs(s, t, causal),
+                              peak)
+        if causal and s != t:          # SDPA's is_causal aligns top-left
+            mask = torch.ones((s, t), dtype=torch.bool, device="cuda").tril(t - s)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, attn_mask=mask)
+        else:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=causal)
+        row = {"kernel": "flash_attention",
+               "shape": f"{name} B={b} H={h} D={d} {str(dt)[6:]}",
+               "max_abs_err": err, "tolerance_share": ratio,
+               "ms": timer(lambda: kmod.flash_attention(q, k, v, causal=causal)),
+               "plain_ms": timer(lambda: ref.flash_attention(q, k, v, causal=causal)),
+               "library_ms": timer(lib),
+               "bound_ms": b_ms, "bound_by": b_by}
+        rows.append(row)
+        log(json.dumps(row))
+        del q, k, v, got, want, diff
+    # causal S > T is refused before any launch
+    before = kmod.launches
+    q = torch.zeros((1, 1, 65, 32), device="cuda")
+    kv = torch.zeros((1, 1, 64, 32), device="cuda")
+    try:
+        kmod.flash_attention(q, kv, kv, causal=True)
+    except ValueError as exc:
+        log(f"flash_attention causal S > T refused: {exc}")
+    else:
+        raise AssertionError("flash_attention accepted causal S > T")
+    if kmod.launches != before:
+        raise AssertionError("flash_attention launched on a refused shape")
+
+
 # --------------------------------------------------------------------------
 
 def main() -> int:
@@ -464,6 +645,8 @@ def main() -> int:
     check_qmm(timer, gen, rows)
     check_grouped_qmm(timer, gen, rows)
     check_int8_matmul(timer, gen, rows)
+    check_fake_quant(timer, gen, rows)
+    check_flash_attention(timer, gen, rows)
     log(f"phase 2: {len(rows)} kernel checks passed in "
         f"{time.perf_counter() - t0:.1f} s")
     result = {"card": card, "kind": kind, "kernel_checks": rows}
@@ -489,6 +672,21 @@ def main() -> int:
         log(f"phase 3c: serving CLI path in {time.perf_counter() - t0:.1f} s, "
             f"peak device memory {cp['peak_mem_gb']:.1f} GB")
         log(json.dumps({"cli_path": cp}))
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        result["library_path"] = lp = library_path()
+        log(f"phase 3d: quantization library path in "
+            f"{time.perf_counter() - t0:.1f} s, peak device memory "
+            f"{lp['peak_mem_gb']:.1f} GB")
+        log(json.dumps({"library_path": lp}))
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        result["train_path"] = tp = train_path()
+        log(f"phase 3e: QAT training path in {time.perf_counter() - t0:.1f} s, "
+            f"peak device memory {tp['peak_mem_gb']:.1f} GB")
+        log(json.dumps({"train_path": tp}))
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -496,7 +694,8 @@ def main() -> int:
     if args.kernels_only:
         return 0
     mps = result["main_paths"]
-    paths = [mp["launches"] for mp in mps.values()] + [cp["launches"]]
+    paths = ([mp["launches"] for mp in mps.values()]
+             + [cp["launches"], lp["launches"], tp["launches"]])
     log(json.dumps({"kernels": kernels_line(rows, paths)}))
     for arch, mp in mps.items():
         log(f"[{card}] {arch}: report {mp['report_s']:.2f} s; packed weights "
@@ -511,6 +710,15 @@ def main() -> int:
         f"p95 {cp['ttft_p95']:.3f} s; shared {cp['kv_shared_tokens']} tokens, "
         f"{cp['kv_cow_copies']} COW copies; device busy "
         f"{cp['profile']['device_busy_share']:.3f}")
+    log(f"[{card}] quantization library internlm2_1_8b: {lp['weight_blocks']} "
+        f"weight blocks x 3 specs and {lp['act_sites']} activation sites "
+        f"through the STE in {lp['fake_quant_s']:.2f} s; flash attention "
+        f"{lp['flash_vs_chunked']['shape']} in {lp['flash_s'] * 1e3:.2f} ms")
+    log(f"[{card}] QAT W4A8 training internlm2_1_8b: {tp['s_per_step']:.3f} "
+        f"s/step, {tp['tokens_per_s']:.0f} tokens/s, peak "
+        f"{tp['peak_mem_gb']:.1f} GB, device busy "
+        f"{tp['profile']['device_busy_share']:.3f}, losses "
+        + " ".join(f"{v:.4f}" for v in tp["losses"]))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -531,6 +739,14 @@ KERNELS = [
      "src/repro/kernels/grouped_qmm.py:125", "w_up/w_gate 2048x1024 W4 C=1"),
     ("int8_matmul", "src/repro_torch/kernels/csrc/int8_matmul.cu",
      "src/repro/kernels/int8_matmul.py:53", "head 2048x92544 M=4"),
+    ("fake_quant", "src/repro_torch/kernels/csrc/fake_quant.cu",
+     "src/repro/kernels/fake_quant.py:34", "w_up 2048x8192 bfloat16 W4 affine"),
+    ("fake_quant_per_channel", "src/repro_torch/kernels/csrc/fake_quant.cu",
+     "src/repro/kernels/fake_quant.py:82",
+     "w_up 2048x8192 bfloat16 W8 sym axis=0"),
+    ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:68",
+     "causal S=T=2048 B=4 H=16 D=128 bfloat16"),
 ]
 SMOKE_ARCHS = ("internlm2_1_8b", "olmoe_1b_7b", "deepseek_moe_16b")
 # full-width main paths (arch, report microbatch), driven in this order
@@ -539,16 +755,35 @@ MAIN_PATHS = (("internlm2_1_8b", 4), ("olmoe_1b_7b", 2))
 # int8-backed path, which must launch none of CLI_IDLE_KERNELS)
 PATH_KERNELS = {"dense": ("ef_sqnorm", "qmm", "paged_attention"),
                 "moe": ("ef_sqnorm", "qmm", "paged_attention", "grouped_qmm"),
-                "cli": ("int8_matmul", "paged_attention")}
+                "cli": ("int8_matmul", "paged_attention"),
+                "library": ("fake_quant", "fake_quant_per_channel",
+                            "flash_attention")}
 CLI_IDLE_KERNELS = ("qmm", "grouped_qmm", "ef_sqnorm")
+# each kernel's launch counter: (module under repro_torch.kernels, attribute)
+COUNTERS = {"ef_sqnorm": ("ef_sqnorm", "launches"), "qmm": ("qmm", "launches"),
+            "paged_attention": ("paged_attention", "launches"),
+            "grouped_qmm": ("grouped_qmm", "launches"),
+            "int8_matmul": ("int8_matmul", "launches"),
+            "fake_quant": ("fake_quant", "launches"),
+            "fake_quant_per_channel": ("fake_quant", "launches_per_channel"),
+            "flash_attention": ("flash_attention", "launches")}
 
 
 def _kernel_modules():
-    from repro_torch.kernels import (
-        ef_sqnorm, grouped_qmm, int8_matmul, paged_attention, qmm)
-    return {"ef_sqnorm": ef_sqnorm, "qmm": qmm,
-            "paged_attention": paged_attention, "grouped_qmm": grouped_qmm,
-            "int8_matmul": int8_matmul}
+    import importlib
+    return {mod: importlib.import_module(f"repro_torch.kernels.{mod}")
+            for mod, _ in COUNTERS.values()}
+
+
+def reset_counts() -> None:
+    mods = _kernel_modules()
+    for mod, attr in COUNTERS.values():
+        setattr(mods[mod], attr, 0)
+
+
+def read_counts() -> dict:
+    mods = _kernel_modules()
+    return {name: getattr(mods[mod], attr) for name, (mod, attr) in COUNTERS.items()}
 
 
 def check_small_reference(arch: str) -> float:
@@ -606,10 +841,8 @@ def main_path(arch: str, microbatch: int):
 
     cfg = get_config(arch)
     res = {"arch": arch, "layers": cfg.num_layers, "microbatch": microbatch}
-    mods = _kernel_modules()
     torch.cuda.reset_peak_memory_stats()
-    for mod in mods.values():
-        mod.launches = 0
+    reset_counts()
 
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0)
@@ -664,7 +897,7 @@ def main_path(arch: str, microbatch: int):
     fin, metrics = engine.run(requests())
     torch.cuda.synchronize()
     res["serve_s"] = time.perf_counter() - t0
-    res["launches"] = {name: mod.launches for name, mod in mods.items()}
+    res["launches"] = read_counts()
     if len(fin) != 8:
         raise AssertionError(f"{len(fin)} of 8 requests finished")
     for r in fin:
@@ -710,17 +943,14 @@ def cli_path():
     copies the boundary page on write."""
     from repro_torch.launch.serve import serve
 
-    mods = _kernel_modules()
     torch.cuda.reset_peak_memory_stats()
-    for mod in mods.values():
-        mod.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     out = serve("internlm2_1_8b", False, 4, 64, 32, 8, int8=True,
                 int8_compute=True, n_requests=8, rate=4.0, clock="wall",
                 paged=True, page_size=16, kv_bits=8, shared_prefix=24)
     torch.cuda.synchronize()
-    res = {"serve_s": time.perf_counter() - t0,
-           "launches": {name: mod.launches for name, mod in mods.items()}}
+    res = {"serve_s": time.perf_counter() - t0, "launches": read_counts()}
     engine = out["engine"]
     cfg = engine.cfg
     fin = out["requests"]
@@ -811,6 +1041,266 @@ def run_cli_smoke() -> dict:
             "decode_tokens": dump["metrics"]["decode_tokens"]}
 
 
+def _bcast(t: torch.Tensor, x: torch.Tensor, axis) -> torch.Tensor:
+    """Per-channel scales reshaped to broadcast along ``axis`` of x."""
+    if axis is None:
+        return t
+    shape = [1] * x.ndim
+    shape[axis % x.ndim] = -1
+    return t.reshape(shape)
+
+
+def _check_fq(x, spec, s, zp, g):
+    """``quant.fake_quant`` of x on (s, zp) through the STE: the output
+    equals the plain version bit for bit and x.grad of (y·g).sum() is g."""
+    from repro_torch.kernels import ref
+    from repro_torch.quant import fake_quant
+
+    xg = x.detach().requires_grad_(True)
+    y = fake_quant(xg, spec, s, zp)
+    want = ref.fake_quant(x, _bcast(s, x, spec.channel_axis),
+                          _bcast(zp, x, spec.channel_axis), spec.bits,
+                          float(spec.levels))
+    (y * g).sum().backward()
+    if not torch.equal(y, want):
+        raise AssertionError(f"fake_quant {spec}: differs from the plain version")
+    if not torch.equal(xg.grad, g):
+        raise AssertionError(f"fake_quant {spec}: the STE gradient is not g")
+
+
+def library_path(arch: str = "internlm2_1_8b", calib_batches: int = 2,
+                 calib_seq: int = 512, attn_seq: int = 2048):
+    """Phase 3d: the quantization library at full width. Calibrate the
+    activation ranges of every tap site over ``calib_batches`` forward
+    passes (CollectContext -> MinMaxObserver and EmaObserver(0.99)), then
+    fake-quantize through the STE every weight matmul block (W4 per
+    tensor, W8 symmetric per channel on the last axis and on axis 0) and
+    every recorded activation (A8 on its EMA range), each held against
+    the plain version and its gradient against g; then flash attention
+    on layer 0's own causal q, k, v at ``attn_seq`` tokens against the
+    model's ``chunked_attention``. Counters are reset just before and
+    read just after."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import LMStreamConfig, lm_batches
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.steps import batch_to_device
+    from repro_torch.models.attention import chunked_attention
+    from repro_torch.models.context import CollectContext
+    from repro_torch.models.layers import apply_rope, rmsnorm
+    from repro_torch.models.transformer import forward, init_params
+    from repro_torch.quant import EmaObserver, MinMaxObserver, QuantSpec
+    from repro_torch.quant.calibration import init_range_state
+    from repro_torch.quant.quantizer import quant_params
+    from repro_torch.utils.pytree import named_leaves
+
+    cfg = get_config(arch)
+    dev = torch.device("cuda")
+    res = {"arch": arch, "layers": cfg.num_layers}
+    params = init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+
+    # 1. calibration
+    stream = lm_batches(LMStreamConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=calib_seq, global_batch=2, seed=0))
+    mm, ema = MinMaxObserver(), EmaObserver(0.99)
+    ranges: dict = {}
+    with torch.no_grad():
+        for _ in range(calib_batches):
+            ctx = CollectContext()
+            forward(params, batch_to_device(next(stream), dev), cfg, ctx=ctx)
+            for site, a in ctx.acts.items():
+                st_mm, st_ema = ranges.get(site, (init_range_state(),
+                                                  init_range_state()))
+                ranges[site] = (mm.update(st_mm, a), ema.update(st_ema, a))
+    acts = ctx.acts
+    torch.cuda.synchronize()
+    res["calibrate_s"] = time.perf_counter() - t0
+    res["act_sites"] = len(acts)
+    widest = max(acts, key=lambda k: float(ranges[k][0].hi - ranges[k][0].lo))
+    res["widest_site"] = {"site": widest,
+                          "minmax": [float(ranges[widest][0].lo),
+                                     float(ranges[widest][0].hi)],
+                          "ema": [float(ranges[widest][1].lo),
+                                  float(ranges[widest][1].hi)]}
+
+    # 2-3. weights and activations through the STE, against the plain version
+    t0 = time.perf_counter()
+    blocks = [(n, w) for n, w in named_leaves(params)
+              if w.ndim == 2 and (n == "head" or "/attn/w" in n or "/mlp/w" in n)]
+    gs: dict = {}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+
+    def grad_for(x):
+        key = (tuple(x.shape), x.dtype)
+        if key not in gs:
+            gs[key] = torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
+        return gs[key]
+
+    wspecs = (QuantSpec(4), QuantSpec(8, symmetric=True, channel_axis=-1),
+              QuantSpec(8, symmetric=True, channel_axis=0))
+    for _, w in blocks:
+        for spec in wspecs:
+            s, zp = quant_params(w, spec)
+            _check_fq(w, spec, s, zp, grad_for(w))
+    a8 = QuantSpec(8)
+    for site, a in acts.items():
+        st = ranges[site][1]
+        s, zp = quant_params(torch.stack([st.lo, st.hi]), a8)
+        _check_fq(a, a8, s, zp, grad_for(a))
+    torch.cuda.synchronize()
+    res["fake_quant_s"] = time.perf_counter() - t0
+    res["weight_blocks"] = len(blocks)
+    del gs, acts, ctx
+
+    # 4. flash attention on layer 0's causal q, k, v
+    b, h, kvh, hd = 2, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    tokens = next(lm_batches(LMStreamConfig(vocab_size=cfg.vocab_size,
+                                            seq_len=attn_seq, global_batch=b,
+                                            seed=1)))["tokens"]
+    with torch.no_grad():
+        x = params["embed"][torch.from_numpy(tokens).to(dev).long()]
+        lp = params["layers"]["0"]
+        hx = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        pos = torch.arange(attn_seq, device=dev)
+        q = apply_rope((hx @ lp["attn"]["wq"]).reshape(b, attn_seq, h, hd), pos,
+                       cfg.rope_theta)
+        k = apply_rope((hx @ lp["attn"]["wk"]).reshape(b, attn_seq, kvh, hd), pos,
+                       cfg.rope_theta)
+        v = (hx @ lp["attn"]["wv"]).reshape(b, attn_seq, kvh, hd)
+        k = torch.repeat_interleave(k, h // kvh, dim=2)
+        v = torch.repeat_interleave(v, h // kvh, dim=2)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = ops.flash_attention(qt, kt, vt, causal=True)
+        torch.cuda.synchronize()
+        res["flash_s"] = time.perf_counter() - t0
+        want = chunked_attention(q, k, v, causal=True,
+                                 chunk=cfg.attn_chunk).transpose(1, 2).float()
+        mag = ref.flash_attention(qt.float(), kt.float(), vt.float().abs())
+        diff = (got.float() - want).abs()
+        # the tolerance of phase 2's bf16 rows: both round P (per tile or
+        # per chunk) and the output to bf16
+        ratio = (diff / (2.0 ** -7 * (mag + want.abs()) + 1e-6)).max().item()
+    res["flash_vs_chunked"] = {"shape": f"B={b} H={h} S={attn_seq} D={hd} "
+                                        f"{str(qt.dtype)[6:]}",
+                               "max_abs_err": diff.max().item(),
+                               "tolerance_share": ratio}
+    if not (torch.isfinite(got).all() and ratio <= 1.0):
+        raise AssertionError(f"flash_attention vs chunked_attention: "
+                             f"{res['flash_vs_chunked']}")
+    res["launches"] = read_counts()
+    for name in PATH_KERNELS["library"]:
+        if res["launches"][name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 "library path")
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return res
+
+
+TRAIN_LR = 1e-3        # random-init 1.8B, 2 warmup steps, bf16 master-free
+
+
+def train_path(arch: str = "internlm2_1_8b", steps: int = 12, batch: int = 4,
+               seq: int = 512):
+    """Phase 3e: QAT training (W4 weights, A8 activations) at full width
+    and depth through ``launch.train.train``; then the resume contract at
+    full width and 2 layers (a crash after the step-3 checkpoint: the
+    resumed losses 3..5 equal the first run's); then the training CLI on
+    the smoke config in a subprocess. QAT fake-quantizes with plain ops,
+    as the reference does: the path launches none of the kernels."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train as tmod
+
+    qat = dict(qat_weight_bits=4, qat_act_bits=8, watchdog_s=None,
+               lr=TRAIN_LR, log_every=1)
+    res = {"arch": arch, "steps": steps, "batch": batch, "seq": seq,
+           "lr": TRAIN_LR}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = tmod.train(arch, False, steps, batch, seq, None, False, 0, **qat)
+    torch.cuda.synchronize()
+    res["wall_s"] = time.perf_counter() - t0
+    res["launches"] = read_counts()
+    losses = out["losses"]
+    res["losses"] = losses
+    res["step_s"] = out["step_s"]
+    steady = statistics.median(out["step_s"][1:])
+    res["s_per_step"] = steady
+    res["tokens_per_s"] = batch * seq / steady
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"QAT training: losses {losses}")
+    if any(res["launches"].values()):
+        raise AssertionError(f"QAT training launched a kernel: {res['launches']}")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["profile"] = profile_training(arch, batch, seq)
+
+    # resume contract: full width, 2 layers (checkpoints of ~5 GB)
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = tmod.get_config
+    tmod.get_config = lambda name: dataclasses.replace(full(name), num_layers=2)
+    tmp = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
+    try:
+        kw = dict(ckpt_dir=tmp, ckpt_every=3, **qat)
+        t0 = time.perf_counter()
+        first = tmod.train(arch, False, 6, batch, seq, resume=False, **kw)
+        (Path(tmp) / "LATEST").write_text("step_00000003")
+        again = tmod.train(arch, False, 6, batch, seq, resume=True, **kw)
+        res["resume"] = {"layers": 2, "first": first["losses"],
+                         "resumed": again["losses"],
+                         "wall_s": time.perf_counter() - t0,
+                         "ckpt_bytes": sum(f.stat().st_size for f in
+                                           Path(tmp).rglob("arrays.npz"))}
+        if again["losses"] != first["losses"][3:]:
+            raise AssertionError(f"resume: losses {again['losses']} != "
+                                 f"{first['losses'][3:]}")
+    finally:
+        tmod.get_config = full
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["cli_smoke"] = run_train_cli_smoke()
+    return res
+
+
+def run_train_cli_smoke() -> dict:
+    """``python -m repro_torch.launch.train`` on the smoke config with W4A8
+    QAT and checkpoints every 3 steps, in a subprocess on this card."""
+    import os
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="repro_torch_cli_ckpt_")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "internlm2_1_8b", "--smoke", "--steps", "6", "--batch", "4", "--seq",
+           "32", "--qat-weight-bits", "4", "--qat-act-bits", "8", "--ckpt-dir",
+           tmp, "--ckpt-every", "3"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                              cwd=str(ROOT), timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"launch.train CLI exited {proc.returncode}:\n"
+                                 f"{proc.stderr[-3000:]}")
+        latest = (Path(tmp) / "LATEST").read_text()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if latest != "step_00000006":
+        raise AssertionError(f"launch.train CLI: LATEST is {latest!r}")
+    return {"wall_s": time.perf_counter() - t0, "latest": latest,
+            "final_log": proc.stderr.strip().splitlines()[-1][-160:]}
+
+
 def check_grouped_equals_dense(qparams, cfg, ecfg, kv_bits, ranges) -> dict:
     """Two short requests served with moe_dispatch="grouped" (one
     grouped_qmm per projection) and "dense" (the per-expert qmm kernel
@@ -855,30 +1345,80 @@ def profile_serving(engine, cfg, n_top: int = 10):
     _, m = engine.run(reqs())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        engine.run(reqs())
-        torch.cuda.synchronize()
+    busy_s, top = device_kernels(lambda: engine.run(reqs()), n_top)
+    s = m.summary()
+    return {"wall_s": wall, "device_busy_s": busy_s,
+            "device_busy_share": busy_s / wall,
+            "prefill_s": m.prefill_s, "decode_s": m.decode_s,
+            "decode_steps": m.decode_steps,
+            "decode_ms_per_step": 1e3 * m.decode_s / max(m.decode_steps, 1),
+            "prefill_ms_per_token": 1e3 * m.prefill_s / max(m.prefill_tokens, 1),
+            "decode_tokens_per_s": s["decode_tokens_per_s"],
+            "top_kernels": top}
 
+
+def device_kernels(fn, n_top: int = 10):
+    """Run ``fn`` under torch.profiler (device activity only): (summed
+    kernel seconds, the ``n_top`` kernels by device time). One stream, so
+    kernels do not overlap and the sum is the device's busy time."""
     def dev_us(e):
         for attr in ("self_device_time_total", "self_cuda_time_total"):
             if hasattr(e, attr):
                 return float(getattr(e, attr))
         return 0.0
 
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
     evs = [e for e in prof.key_averages() if dev_us(e) > 0]
-    busy_us = sum(dev_us(e) for e in evs)
     top = sorted(evs, key=dev_us, reverse=True)[:n_top]
-    s = m.summary()
-    return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
-            "device_busy_share": busy_us / 1e6 / wall,
-            "prefill_s": m.prefill_s, "decode_s": m.decode_s,
-            "decode_steps": m.decode_steps,
-            "decode_ms_per_step": 1e3 * m.decode_s / max(m.decode_steps, 1),
-            "prefill_ms_per_token": 1e3 * m.prefill_s / max(m.prefill_tokens, 1),
-            "decode_tokens_per_s": s["decode_tokens_per_s"],
-            "top_kernels": [{"name": e.key[:90], "count": e.count,
-                             "device_ms": dev_us(e) / 1e3} for e in top]}
+    return (sum(dev_us(e) for e in evs) / 1e6,
+            [{"name": e.key[:90], "count": e.count, "device_ms": dev_us(e) / 1e3}
+             for e in top])
+
+
+def profile_training(arch: str, batch: int, seq: int, steps: int = 2,
+                     n_top: int = 12):
+    """Where a QAT (W4A8) training step's time goes at full width: one
+    warm step, ``steps`` steps timed on the host clock, ``steps`` more
+    under torch.profiler. Device busy share = summed kernel time over the
+    unprofiled wall time; the rest is the host."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import LMStreamConfig, lm_batches
+    from repro_torch.launch.steps import (
+        TrainState, batch_to_device, train_step, uniform_levels)
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.adamw import AdamWConfig, init_adam
+    from repro_torch.utils.pytree import named_leaves
+
+    cfg = get_config(arch)
+    params = init_params(cfg, seed=0)
+    for _, p in named_leaves(params):
+        p.requires_grad_(True)
+    state = [TrainState(params, init_adam(params))]
+    qat = uniform_levels(cfg, 4, 8)
+    adam = AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=12)
+    stream = lm_batches(LMStreamConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                       global_batch=batch, seed=0))
+    dev = torch.device("cuda")
+    batches = [batch_to_device(next(stream), dev) for _ in range(1 + 2 * steps)]
+
+    def run(bs):
+        for b in bs:
+            state[0], m = train_step(state[0], b, cfg, adam, qat)
+            float(m["loss"])
+
+    run(batches[:1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(batches[1:1 + steps])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy_s, top = device_kernels(lambda: run(batches[1 + steps:]), n_top)
+    return {"steps": steps, "s_per_step": wall / steps,
+            "device_s_per_step": busy_s / steps, "device_busy_share": busy_s / wall,
+            "top_kernels": top}
 
 
 def kernels_line(rows, paths):
@@ -887,7 +1427,7 @@ def kernels_line(rows, paths):
     out = []
     for name, source, replaces, shape in KERNELS:
         row = next(r for r in rows if r["kernel"] == name and r["shape"] == shape)
-        launches = sum(p[name] for p in paths)
+        launches = sum(p.get(name, 0) for p in paths)
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": launches,
                     "max_abs_err": row["max_abs_err"], "ms": row["ms"],

@@ -28,6 +28,7 @@ _lib: Optional[ctypes.CDLL] = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # C entry points and their argument types; every pointer and the stream
 # are c_void_p, so ctypes never truncates them to 32 bits
 SIGNATURES = {
@@ -38,6 +39,10 @@ SIGNATURES = {
     "int8_matmul_launch": [_P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L, _P],
     "paged_attention_launch": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P,
                                _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "fake_quant_launch": [_P, _P, _I, _L, _P, _P, _F, _P],
+    "fake_quant_per_channel_launch": [_P, _P, _I, _L, _L, _L, _P, _P, _F, _P],
+    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                               _P],
 }
 
 

@@ -10,11 +10,31 @@ import torch
 
 from repro_torch.analysis.bounds import require_full_k_safe
 from repro_torch.kernels.ef_sqnorm import ef_sqnorm as _ef_sqnorm
+from repro_torch.kernels.fake_quant import fake_quant as _fake_quant
+from repro_torch.kernels.flash_attention import (
+    flash_attention as _flash_attention)
 from repro_torch.kernels.grouped_qmm import grouped_qmm as _grouped_qmm
 from repro_torch.kernels.int8_matmul import int8_matmul as _int8_matmul
 from repro_torch.kernels.paged_attention import (
     paged_attention as _paged_attention)
 from repro_torch.kernels.qmm import qmm as _qmm
+
+
+def fake_quant(x: torch.Tensor, scale, zero_point, bits: int,
+               levels=None) -> torch.Tensor:
+    """Quantize–dequantize x on the grid of (scale, zero_point): scalars
+    run the per-tensor kernel, scales broadcast along one axis of x (any
+    axis) the per-channel one. ``levels``: the largest grid index —
+    default affine 2^bits − 1; pass ``QuantSpec.levels`` (2^bits − 2)
+    for symmetric specs."""
+    return _fake_quant(x, scale, zero_point, bits, levels=levels)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """(B, H, S, D) x (B, H, T, D) attention with the causal mask aligned
+    bottom-right; causal S > T is refused."""
+    return _flash_attention(q, k, v, causal=causal)
 
 
 def ef_sqnorm(g: torch.Tensor) -> torch.Tensor:

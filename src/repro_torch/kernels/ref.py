@@ -167,3 +167,57 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
     pr = torch.softmax(sc, dim=-1)
     return torch.einsum("bkgt,btkd->bkgd", pr.to(vg.dtype), vg)
+
+
+def fake_quant(x: torch.Tensor, scale, zero_point, bits: int,
+               levels=None) -> torch.Tensor:
+    """Quantize–dequantize on a uniform grid, in fp32, cast back to x's
+    dtype: ``q = clip(round(x * (1/scale) + zp), 0, levels)``, then
+    ``(q - zp) * scale``. ``scale``/``zero_point`` are scalars or
+    broadcast against x (per-channel along any axis). ``levels`` is the
+    largest grid index: default the affine 2^bits − 1; pass
+    ``QuantSpec.levels`` (2^bits − 2) for symmetric specs. The reciprocal
+    is multiplied (not divided), and the multiply and add round
+    separately: the CUDA kernel does the same, bit for bit."""
+    if levels is None:
+        levels = 2.0 ** bits - 1.0
+    s = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
+    zp = torch.as_tensor(zero_point, dtype=torch.float32, device=x.device)
+    inv = 1.0 / s
+    q = torch.clamp(torch.round(x.to(torch.float32) * inv + zp), 0.0,
+                    float(levels))
+    return ((q - zp) * s).to(x.dtype)
+
+
+def clip_stats(x: torch.Tensor, scale, zero_point, bits: int, levels=None):
+    """(clipped, total) fp32 element counts of one fake-quant call: how
+    many grid indices ``round(x / scale + zp)`` fell outside [0, levels]
+    and were clamped (the reference divides here, unlike its kernels)."""
+    lv = (2.0 ** bits - 1.0) if levels is None else float(levels)
+    s = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
+    zp = torch.as_tensor(zero_point, dtype=torch.float32, device=x.device)
+    q = torch.round(x.to(torch.float32) / s + zp)
+    clipped = torch.sum(((q < 0.0) | (q > lv)).to(torch.float32))
+    return clipped, torch.tensor(float(x.numel()), dtype=torch.float32,
+                                 device=x.device)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, scale=None) -> torch.Tensor:
+    """Plain attention. q: (B, H, S, D); k, v: (B, H, T, D) -> (B, H, S, D)
+    in q's dtype: fp32 scores times ``1/sqrt(D)``, the causal mask aligned
+    bottom-right (query i sees keys j <= i + T − S; the caller refuses
+    S > T, where a row would see nothing), an fp32 softmax, and P cast to
+    v's dtype before P·V."""
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    logits = torch.einsum("bhsd,bhtd->bhst", q.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    if causal:
+        s, t = q.shape[2], k.shape[2]
+        mask = torch.tril(torch.ones((s, t), dtype=torch.bool,
+                                     device=q.device), diagonal=t - s)
+        logits = torch.where(mask, logits,
+                             torch.full_like(logits, float("-inf")))
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhst,bhtd->bhsd", p.to(v.dtype), v).to(q.dtype)

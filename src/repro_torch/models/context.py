@@ -6,6 +6,8 @@ activation site ``ctx.tap(name, a)``; names are scoped with
 ``ctx.scope("layers/0")`` so paths line up with the parameter tree.
 
   * ``Context``         — identity (plain forward)
+  * ``QATContext``      — STE fake-quant of weights and activations with
+                          per-block levels (2^bits − 1), the QAT forward
   * ``TapContext``      — adds a zero-valued tap tensor (FIT activation EF)
   * ``CollectContext``  — records activation values (shapes, ranges)
   * ``DequantContext``  — quantized weights: packed QTensors (``matmul``
@@ -16,16 +18,37 @@ activation site ``ctx.tap(name, a)``; names are scoped with
                           through ``grouped_qmm``) or int8-backed leaves
                           with path-keyed scales (``int8_matmul``)
 
-The QAT and tensor-parallel routes of the reference are not ported yet.
+The tensor-parallel route of the reference is not ported yet.
 """
 from __future__ import annotations
 
 from contextlib import contextmanager
-from typing import Dict, List, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional
 
 import torch
 
 from repro_torch.qtensor import QTensor, expert_slice
+
+
+def _dynamic_fake_quant_ste(x: torch.Tensor, levels) -> torch.Tensor:
+    """Min–max fake-quant of x with ``levels`` (2^b − 1, a float or a
+    0-d tensor) and a straight-through gradient, as the reference's QAT
+    forward computes it: the grid index is ``x / scale + zp`` (a
+    division, unlike the fake-quant kernels), ``levels >= 32767`` is the
+    identity (branch-free), and the STE is ``x + (y - x).detach()``.
+    Plain PyTorch ops, not the fake-quant kernel: the reference's QAT
+    path runs its own jnp arithmetic, not its kernel either."""
+    lv = torch.as_tensor(levels, dtype=torch.float32, device=x.device)
+    xd = x.detach()
+    lo = torch.clamp_max(torch.amin(xd), 0.0).to(torch.float32)
+    hi = torch.clamp_min(torch.amax(xd), 0.0).to(torch.float32)
+    scale = torch.clamp_min((hi - lo) / lv, 1e-12)
+    zp = torch.round(-lo / scale)
+    q = torch.clamp(torch.round(xd.to(torch.float32) / scale + zp), 0.0)
+    q = torch.minimum(q, lv)
+    fq = ((q - zp) * scale).to(x.dtype)
+    y = torch.where(lv >= 32767.0, xd, fq)
+    return x + (y - x).detach()
 
 
 class Context:
@@ -63,6 +86,35 @@ class Context:
 
     def tap(self, name: str, a: torch.Tensor) -> torch.Tensor:
         return a
+
+
+class QATContext(Context):
+    """Fake-quantize weights and activations with per-block levels.
+
+    ``weight_levels`` / ``act_levels`` map block path -> levels
+    (2^bits − 1), python floats or 0-d tensors (a slice of a per-layer
+    levels table). A path not in a table falls back to its last part
+    (shared-block invocations); a block in neither is left as it is.
+    """
+
+    def __init__(self, weight_levels: Mapping[str, Any],
+                 act_levels: Mapping[str, Any], scope_prefix: str = ""):
+        super().__init__(scope_prefix)
+        self.weight_levels = weight_levels
+        self.act_levels = act_levels
+
+    def _lookup(self, table: Mapping[str, Any], path: str):
+        if path in table:
+            return table[path]
+        return table.get(path.split("/")[-1])
+
+    def qw(self, name: str, w: torch.Tensor) -> torch.Tensor:
+        lv = self._lookup(self.weight_levels, self.path(name))
+        return w if lv is None else _dynamic_fake_quant_ste(w, lv)
+
+    def tap(self, name: str, a: torch.Tensor) -> torch.Tensor:
+        lv = self._lookup(self.act_levels, self.path(name))
+        return a if lv is None else _dynamic_fake_quant_ste(a, lv)
 
 
 class TapContext(Context):

@@ -5,10 +5,14 @@ Always the unrolled layout: one parameter subtree per layer under
 ``layers/<i>``, the block paths FIT, the bit allocator and the QTensor
 materializer key on. A MoE block holds a ``moe`` subtree in place of
 ``mlp``. The ssm, hybrid, audio and vlm families are not ported yet.
+
+QAT (``qat=QATLevels``) builds one ``QATContext`` per layer from the
+per-layer levels tables, as the reference's stacked-layer forward does,
+so the tables key on within-layer paths ("attn/wq").
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -16,7 +20,7 @@ from repro_torch._device import DeviceLike, generator, resolve_device
 from repro_torch.configs import ModelConfig
 from repro_torch.models.attention import (
     attention_apply, attention_decode, attention_decode_paged, init_attention)
-from repro_torch.models.context import Context
+from repro_torch.models.context import Context, QATContext
 from repro_torch.models.layers import init_mlp, init_norm, mlp_apply, rmsnorm
 from repro_torch.models.moe import init_moe, moe_apply
 
@@ -125,6 +129,19 @@ def _attn_mlp_block_decode_paged(x, bp, cfg, ctx, lp, table, pos, write_limit):
                                          pos, write_limit))
 
 
+class QATLevels(NamedTuple):
+    """levels = 2^bits − 1 per block path.
+
+    ``layer_weights``/``layer_acts`` hold (L,) tensors keyed by the
+    within-layer path ("attn/wq"); ``top_weights``/``top_acts`` hold
+    scalars for the embedding and the head. Levels >= 32767 leave a
+    block unquantized."""
+    layer_weights: Dict[str, torch.Tensor]
+    layer_acts: Dict[str, torch.Tensor]
+    top_weights: Dict[str, torch.Tensor]
+    top_acts: Dict[str, torch.Tensor]
+
+
 def embed_inputs(params, inputs: Dict[str, torch.Tensor], cfg: ModelConfig,
                  ctx) -> torch.Tensor:
     x = params["embed"][inputs["tokens"].long()]
@@ -137,28 +154,40 @@ def logits_from_hidden(params, x, cfg: ModelConfig, ctx) -> torch.Tensor:
 
 
 def forward(params, inputs: Dict[str, torch.Tensor], cfg: ModelConfig,
-            ctx: Optional[Context] = None
+            ctx: Optional[Context] = None, qat: Optional[QATLevels] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(logits (B, S, V_padded), MoE aux loss summed over layers) of the
-    unrolled forward."""
+    unrolled forward. ``ctx`` runs every layer under ``layers/<i>``
+    scopes; otherwise ``qat`` gives each layer its own ``QATContext``
+    (no ``qat``: the plain forward)."""
     require_ported_family(cfg)
+    layer_ctx = None
+    if ctx is None and qat is not None:
+        ctx = QATContext(qat.top_weights, qat.top_acts)
+        layer_ctx = lambda i: QATContext(  # noqa: E731
+            {k: v[i] for k, v in qat.layer_weights.items()},
+            {k: v[i] for k, v in qat.layer_acts.items()})
     ctx = ctx or Context()
     x = embed_inputs(params, inputs, cfg, ctx)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
-        with ctx.scope(f"layers/{i}"):
-            x, da = _attn_mlp_block(x, params["layers"][str(i)], cfg, ctx)
-            aux = aux + da
+        bp = params["layers"][str(i)]
+        if layer_ctx is not None:
+            x, da = _attn_mlp_block(x, bp, cfg, layer_ctx(i))
+        else:
+            with ctx.scope(f"layers/{i}"):
+                x, da = _attn_mlp_block(x, bp, cfg, ctx)
+        aux = aux + da
     return logits_from_hidden(params, x, cfg, ctx), aux
 
 
 def loss_fn(params, inputs: Dict[str, torch.Tensor], cfg: ModelConfig,
-            ctx: Optional[Context] = None,
+            ctx: Optional[Context] = None, qat: Optional[QATLevels] = None,
             aux_weight: float = 0.01) -> torch.Tensor:
     """Mean next-token cross-entropy plus ``aux_weight`` times the MoE
     aux loss; the padded vocab is masked. The CE stays in the logits
     dtype, with fp32 only inside exp and the sum."""
-    logits, aux = forward(params, inputs, cfg, ctx=ctx)
+    logits, aux = forward(params, inputs, cfg, ctx=ctx, qat=qat)
     labels = inputs["labels"].long()
     v = vocab_padded(cfg)
     if v != cfg.vocab_size:

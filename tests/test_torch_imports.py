@@ -23,7 +23,12 @@ def test_every_module_imports_without_jax_or_repro():
     mods = list(_modules())
     assert len(mods) > 30
     assert {"repro_torch.kernels.int8_matmul", "repro_torch.quant.quantizer",
-            "repro_torch.launch", "repro_torch.launch.serve"} <= set(mods)
+            "repro_torch.launch", "repro_torch.launch.serve",
+            "repro_torch.kernels.fake_quant", "repro_torch.kernels.flash_attention",
+            "repro_torch.quant.fake_quant", "repro_torch.quant.calibration",
+            "repro_torch.optim.adamw", "repro_torch.checkpoint.checkpointer",
+            "repro_torch.launch.fault", "repro_torch.launch.steps",
+            "repro_torch.launch.train"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -90,13 +95,12 @@ def test_chip_smoke_uses_neither_jax_nor_repro(check):
     assert '"ok"' not in out.stdout
 
 
-def test_serve_cli_help_loads_neither_jax_nor_repro():
-    """``python -m repro_torch.launch.serve --help`` parses its flags with
-    only the port and torch loaded."""
+def _cli_help(module: str):
+    """``python -m <module> --help`` with only the port and torch loaded."""
     code = ("import runpy, sys\n"
-            "sys.argv = ['serve', '--help']\n"
+            "sys.argv = ['cli', '--help']\n"
             "try:\n"
-            "    runpy.run_module('repro_torch.launch.serve', run_name='__main__')\n"
+            f"    runpy.run_module({module!r}, run_name='__main__')\n"
             "except SystemExit as e:\n"
             "    assert e.code == 0, e.code\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
@@ -106,4 +110,19 @@ def test_serve_cli_help_loads_neither_jax_nor_repro():
                          text=True, env={"PYTHONPATH": str(PKG.parent),
                                          "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
-    assert "--int8-compute" in out.stdout and "--shared-prefix" in out.stdout
+    return out.stdout
+
+
+def test_serve_cli_help_loads_neither_jax_nor_repro():
+    out = _cli_help("repro_torch.launch.serve")
+    assert "--int8-compute" in out and "--shared-prefix" in out
+
+
+def test_train_cli_help_loads_neither_jax_nor_repro():
+    """The training CLI takes the reference's flags and no device flag."""
+    out = _cli_help("repro_torch.launch.train")
+    for flag in ("--arch", "--smoke", "--steps", "--batch", "--seq",
+                 "--ckpt-dir", "--resume", "--ckpt-every", "--qat-weight-bits",
+                 "--qat-act-bits", "--watchdog-s", "--lr"):
+        assert flag in out, flag
+    assert "--device" not in out
