@@ -7,7 +7,8 @@ Phases, in order; any failure exits non-zero:
   1. print the card and its power limit; build the CUDA kernels from
      src/repro_torch/kernels/csrc with nvcc for sm_90a (one nvcc per
      source, all started together);
-  2. hold every kernel against its plain PyTorch version on the card at
+  2. hold every kernel (qmm_groups and its fold included) against its
+     plain PyTorch version on the card at
      the main paths' shapes, and time kernel, plain version and the one
      PyTorch library call computing the same function (CUDA events);
   3a. the packed paged decode of the internlm2_1_8b, olmoe_1b_7b and
@@ -34,6 +35,11 @@ Phases, in order; any failure exits non-zero:
   3e. QAT training (W4A8) of internlm2_1_8b at full width and depth
      through launch.train.train, the resume contract at full width and 2
      layers, and the training CLI in a subprocess;
+  3f. (run right after 3b, on its params) tensor-parallel serving on this
+     one card: internlm2_1_8b at the tp=1 mesh and at tp=2 (two shards
+     on cuda:0), streams identical to 3b's plain engine; olmoe_1b_7b at
+     tp=2 with expert parallelism; the CLI's int8-backed params at tp=2;
+     a decode-step A/B of plain, tp=1 and tp=2 in turns;
   4. print the kernels line and the main-path metrics;
   5. print {"ok": true, "device": {...}} as the last line.
 
@@ -152,13 +158,14 @@ def check_qmm(timer, gen, rows):
                 xq = torch.randint(-127, 128, (m, k), generator=gen,
                                    device="cuda", dtype=torch.int32).to(torch.int8)
                 xs = torch.rand(m, generator=gen, device="cuda") * 0.02 + 1e-3
-                y, dots = kmod.qmm(xq, qt, xs, return_dots=True)
-                want_dots = ref.qmm_group_dots(xq, qt)
+                y, terms = kmod.qmm(xq, qt, xs, return_terms=True)
+                want_terms = ref.qmm_group_products(xq, qt)
                 want = ref.qmm(xq, qt, xs.reshape(-1, 1))
                 torch.cuda.synchronize()
-                if not torch.equal(dots, want_dots):
-                    raise AssertionError(f"qmm {name} W{bits} M={m}: int32 "
-                                         "group dots differ from the plain "
+                if not torch.equal(terms, want_terms):
+                    raise AssertionError(f"qmm {name} W{bits} M={m}: group "
+                                         "terms (exact int32 dots, one "
+                                         "rounding) differ from the plain "
                                          "version")
                 scale = want.abs().max().item()
                 err = (y - want).abs().max().item()
@@ -179,6 +186,90 @@ def check_qmm(timer, gen, rows):
                 log(json.dumps(row))
             del qt, wd
         del w
+
+
+# (name, K, N, bits, M): wo and w_down of internlm2_1_8b at group 128, at
+# tp=1 and at their tp=2 shard-local K, at M=4 (a decode step of 4 slots)
+# and M=1 (every prefill token: the engine prefills one token a step, and
+# the only M that leaves the warp's 4-row tile partial); a ragged M=3; a
+# stress M=32 the path never gives (8 tiles in one launch); 6- and 3-bit
+# payloads; a ragged N (not a multiple of 4: the byte-wise load path)
+QMM_GROUPS_SHAPES = [("wo", 2048, 2048, 8, 4), ("w_down", 8192, 2048, 4, 4),
+                     ("wo tp=2 shard", 1024, 2048, 8, 4),
+                     ("w_down tp=2 shard", 4096, 2048, 4, 4),
+                     ("wo", 2048, 2048, 8, 1), ("w_down", 8192, 2048, 4, 1),
+                     ("wo tp=2 shard", 1024, 2048, 8, 1),
+                     ("w_down tp=2 shard", 4096, 2048, 4, 1),
+                     ("wo ragged M", 2048, 2048, 8, 3),
+                     ("wo stress M", 2048, 2048, 8, 32),
+                     ("wo", 2048, 2048, 6, 4), ("wo", 2048, 2048, 3, 4),
+                     ("ragged", 1024, 1027, 4, 4)]
+
+
+def check_qmm_groups(timer, gen, rows):
+    """qmm_groups against its plain version with ``torch.equal`` (exact
+    int32 dots, one rounding of the scale product) at the shapes the
+    tensor-parallel path gives it; shard invariance (the terms of a
+    K-slice owning whole groups are that slice of the full terms); and
+    qmm_groups_fold of the terms ``torch.equal`` to the qmm kernel and
+    to the plain fold."""
+    from repro_torch.kernels import qmm as kmod, ref
+    from repro_torch.qtensor import quantize, shard
+
+    for name, k, n, bits, m in QMM_GROUPS_SHAPES:
+        w = torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5
+        qt = quantize(w, bits, group_size=128)
+        groups = k // 128
+        xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
+                           dtype=torch.int32).to(torch.int8)
+        xs = torch.rand(m, generator=gen, device="cuda") * 0.02 + 1e-3
+        tag = f"qmm_groups {name} {k}x{n} W{bits} G={groups} M={m}"
+        terms = kmod.qmm_groups(xq, qt)
+        want = ref.qmm_group_products(xq, qt)
+        torch.cuda.synchronize()
+        if not torch.equal(terms, want):
+            err = (terms - want).abs().max().item()
+            raise AssertionError(f"{tag}: differs from the plain version "
+                                 f"(max err {err})")
+        for n_shards in (2, 4):
+            kl, gl = k // n_shards, groups // n_shards
+            for i, part in enumerate(shard(qt, n_shards, 0)):
+                got = kmod.qmm_groups(xq[:, i * kl:(i + 1) * kl], part)
+                if not torch.equal(got, terms[i * gl:(i + 1) * gl]):
+                    raise AssertionError(f"{tag}: shard {i} of {n_shards} "
+                                         "differs from its slice of the terms")
+        folded = kmod.qmm_groups_fold(terms, xs)
+        if not torch.equal(folded, kmod.qmm(xq, qt, xs)):
+            raise AssertionError(f"{tag}: the fold differs from the qmm kernel")
+        if not torch.equal(folded, ref.fold_group_terms(terms, xs.reshape(-1, 1))):
+            raise AssertionError(f"{tag}: the fold differs from its plain version")
+        xg = ((xq.float() * xs[:, None]).to(torch.bfloat16)
+              .reshape(m, groups, 128).transpose(0, 1).contiguous())
+        wg = qt.dequantize(torch.bfloat16).reshape(groups, 128, n)
+        nbytes = qt.data.numel() + qt.scale.numel() * 4 + m * k + groups * m * n * 4
+        b_ms, b_by = bound_ms(nbytes, 2.0 * m * k * n, INT8_OPS)
+        row = {"kernel": "qmm_groups", "shape": f"{name} {k}x{n} W{bits} G={groups} M={m}",
+               "bits": bits, "m": m, "max_abs_err": 0.0,
+               "ms": timer(lambda: kmod.qmm_groups(xq, qt)),
+               "plain_ms": timer(lambda: ref.qmm_group_products(xq, qt)),
+               "library_ms": timer(lambda: torch.bmm(xg, wg)),
+               "bound_ms": b_ms, "bound_by": b_by}
+        rows.append(row)
+        log(json.dumps(row))
+        if m in (1, 4) and bits in (8, 4) and "shard" not in name:
+            nbytes = groups * m * n * 4 + m * 4 + m * n * 4
+            b_ms, b_by = bound_ms(nbytes, float(groups * m * n), FP32_FLOPS)
+            row = {"kernel": "qmm_groups_fold",
+                   "shape": f"{name} G={groups} M={m} N={n}", "m": m,
+                   "max_abs_err": 0.0,
+                   "ms": timer(lambda: kmod.qmm_groups_fold(terms, xs)),
+                   "plain_ms": timer(lambda: ref.fold_group_terms(
+                       terms, xs.reshape(-1, 1))),
+                   "library_ms": timer(lambda: torch.sum(terms, 0)),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            rows.append(row)
+            log(json.dumps(row))
+        del w, qt, terms, want, xg, wg
 
 
 GROUPED_SHAPES = [("w_up/w_gate", 2048, 1024), ("w_down", 1024, 2048)]
@@ -643,6 +734,7 @@ def main() -> int:
     check_paged_attention(timer, gen, rows)
     check_paged_attention(timer, gen, rows, kvh=16, g=1)      # olmoe's GQA
     check_qmm(timer, gen, rows)
+    check_qmm_groups(timer, gen, rows)
     check_grouped_qmm(timer, gen, rows)
     check_int8_matmul(timer, gen, rows)
     check_fake_quant(timer, gen, rows)
@@ -657,14 +749,27 @@ def main() -> int:
         log(f"phase 3a: smoke-config decode on the card agrees with the CPU "
             f"plain path (max err {errs})")
         result["main_paths"] = {}
+        kept = {}
         for arch, microbatch in MAIN_PATHS:
             gc.collect()
             torch.cuda.empty_cache()
             t0 = time.perf_counter()
-            result["main_paths"][arch] = mp = main_path(arch, microbatch)
+            result["main_paths"][arch], kept[arch] = main_path(arch, microbatch)
+            # parked on the host while the next path measures its memory
+            kept[arch]["qparams"] = tree_to(kept[arch]["qparams"], "cpu")
+            mp = result["main_paths"][arch]
             log(f"phase 3b: {arch} main path in {time.perf_counter() - t0:.1f} s, "
                 f"peak device memory {mp['peak_mem_gb']:.1f} GB")
             log(json.dumps({"main_path": mp}))
+        # phase 3f serves phase 3b's params again, sharded: it runs here so
+        # they are freed before the later phases measure their memory
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        result["tp_path"] = tpp = tp_path(kept)
+        del kept
+        log(f"phase 3f: tensor-parallel path in {time.perf_counter() - t0:.1f} s")
+        log(json.dumps({"tp_path": tpp}))
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -695,7 +800,7 @@ def main() -> int:
         return 0
     mps = result["main_paths"]
     paths = ([mp["launches"] for mp in mps.values()]
-             + [cp["launches"], lp["launches"], tp["launches"]])
+             + [tpp["launches"], cp["launches"], lp["launches"], tp["launches"]])
     log(json.dumps({"kernels": kernels_line(rows, paths)}))
     for arch, mp in mps.items():
         log(f"[{card}] {arch}: report {mp['report_s']:.2f} s; packed weights "
@@ -704,6 +809,26 @@ def main() -> int:
             f"{mp['decode_tokens_per_s']:.1f} tok/s; TTFT p50 "
             f"{mp['ttft_p50']:.3f} s p95 {mp['ttft_p95']:.3f} s; peak "
             f"{mp['peak_mem_gb']:.1f} GB")
+    ab = tpp["step_ab"]["median_ms"]
+    log(f"[{card}] decode step at batch 4, in turns: plain {ab['plain']:.1f} ms, "
+        f"tp=1 mesh {ab['tp=1 mesh']:.1f} ms, tp=2 on one card {ab['tp=2']:.1f} ms")
+    log(f"[{card}] plain decode step at batch 4 through the run, ms: " + ", ".join(
+        f"{arch} 3b {mp['step_before_profile']['median_ms']['plain']:.1f} before "
+        f"/ {mp['step_after_empty_profile']['median_ms']['plain']:.1f} after an "
+        f"empty / {mp['step_after_profile']['median_ms']['plain']:.1f} after its "
+        "serving profile" for arch, mp in mps.items())
+        + f"; 3f start {ab['plain']:.1f}, 3f end "
+        f"{tpp['plain_step_after']['median_ms']['plain']:.1f}")
+    log(f"[{card}] phase 3f seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in tpp["seconds"].items()))
+    for tag, run in tpp["runs"].items():
+        log(f"[{card}] tensor-parallel {tag}: {run['shards']} shards on one card; "
+            f"per-shard weights {run['shard_weight_bytes'] / 1e9:.3f} GB, pools "
+            f"{run['shard_pool_bytes'] / 1e6:.1f} MB; decode "
+            f"{run['decode_tokens_per_s']:.1f} tok/s, "
+            f"{run['decode_ms_per_step']:.1f} ms/step; peak "
+            f"{run['peak_mem_gb']:.1f} GB; device busy "
+            + f"{run['profile']['device_busy_share']:.3f}")
     log(f"[{card}] launch.serve internlm2_1_8b --int8 --int8-compute --paged: "
         f"int8-backed weights {cp['weight_bytes'] / 1e9:.3f} GB; decode "
         f"{cp['decode_tokens_per_s']:.1f} tok/s; TTFT p50 {cp['ttft_p50']:.3f} s "
@@ -732,6 +857,8 @@ KERNELS = [
      "src/repro/kernels/ef_sqnorm.py:34", "(4, 189530112) bf16"),
     ("qmm", "src/repro_torch/kernels/csrc/qmm.cu",
      "src/repro/kernels/qmm.py:153", "head 2048x92544 W4 M=4"),
+    ("qmm_groups", "src/repro_torch/kernels/csrc/qmm.cu",
+     "src/repro/kernels/qmm.py:112", "w_down 8192x2048 W4 G=64 M=4"),
     ("paged_attention", "src/repro_torch/kernels/csrc/paged_attention.cu",
      "src/repro/kernels/paged_attention.py:90",
      "B=4 KV=8 G=2 Dh=128 page=16 W8"),
@@ -757,10 +884,14 @@ PATH_KERNELS = {"dense": ("ef_sqnorm", "qmm", "paged_attention"),
                 "moe": ("ef_sqnorm", "qmm", "paged_attention", "grouped_qmm"),
                 "cli": ("int8_matmul", "paged_attention"),
                 "library": ("fake_quant", "fake_quant_per_channel",
-                            "flash_attention")}
-CLI_IDLE_KERNELS = ("qmm", "grouped_qmm", "ef_sqnorm")
+                            "flash_attention"),
+                "tp": ("qmm_groups", "qmm", "paged_attention", "grouped_qmm",
+                       "int8_matmul")}
+CLI_IDLE_KERNELS = ("qmm", "qmm_groups", "grouped_qmm", "ef_sqnorm")
 # each kernel's launch counter: (module under repro_torch.kernels, attribute)
 COUNTERS = {"ef_sqnorm": ("ef_sqnorm", "launches"), "qmm": ("qmm", "launches"),
+            "qmm_groups": ("qmm", "launches_groups"),
+            "qmm_groups_fold": ("qmm", "launches_fold"),
             "paged_attention": ("paged_attention", "launches"),
             "grouped_qmm": ("grouped_qmm", "launches"),
             "int8_matmul": ("int8_matmul", "launches"),
@@ -825,8 +956,9 @@ def check_small_reference(arch: str) -> float:
 
 
 def main_path(arch: str, microbatch: int):
-    """One full-width main path; returns its metrics. Every kernel counter
-    is set to 0 at the start and read right after the serving run."""
+    """One full-width main path; returns its metrics and what phase 3f
+    needs to serve the same requests sharded. Every kernel counter is set
+    to 0 at the start and read right after the serving run."""
     from repro_torch.configs import get_config
     from repro_torch.core.report import build_report
     from repro_torch.data.synthetic import LMStreamConfig, lm_batches
@@ -924,13 +1056,275 @@ def main_path(arch: str, microbatch: int):
             got, _ = engine.run(alone)
             if not (got[0].output_tokens == fin[rid].output_tokens).all():
                 raise AssertionError(f"request {rid}: alone != batched")
+    # the plain decode step around the first profiler sessions of the
+    # process, one around no work, then the serving profile, to hold
+    # against phase 3f's (``decode_step_ab``)
+    res["step_before_profile"] = decode_step_ab({"plain": engine})
+    device_kernels(lambda: None)
+    res["step_after_empty_profile"] = decode_step_ab({"plain": engine})
     res["profile"] = profile_serving(engine, cfg)
+    res["step_after_profile"] = decode_step_ab({"plain": engine})
     s = metrics.summary()
     res.update({k: s[k] for k in ("decode_tokens_per_s", "prefill_tokens_per_s",
                                   "ttft_p50", "ttft_p95", "e2e_p50",
                                   "token_latency_p50_ms", "decode_tokens",
                                   "kv_peak_bytes", "kv_pool_bytes")})
     res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # what phase 3f serves again, sharded: the same params, KV widths,
+    # ranges, engine shape, requests and the plain engine's streams
+    keep = {"cfg": cfg, "qparams": qparams, "kv_bits": kv_bits,
+            "ranges": report.act_ranges, "ecfg": ecfg, "requests": requests,
+            "streams": [r.output_tokens.tolist() for r in fin]}
+    return res, keep
+
+
+TP_INT8_LAYERS = 4      # depth of the int8-backed tp run (full width)
+
+
+def tree_to(tree, device):
+    from repro_torch.utils.pytree import map_with_names
+    return map_with_names(lambda _, leaf: leaf.to(device), tree)
+
+
+def decode_step_ab(engines: dict, turns: int = 2, steps: int = 8) -> dict:
+    """Host-clock milliseconds per decode step at batch ``max_slots`` of
+    each engine's context on its own weights, timed in turns (the names
+    in order, then reversed, ``turns`` times; ``steps`` steps a leg,
+    ending in a synchronize) on fresh paged states that map every page;
+    the first step's logits of every engine are held ``torch.equal`` to
+    the first engine's."""
+    from repro_torch.models.decode import decode_step
+
+    first, states, toks = {}, {}, {}
+    with torch.no_grad():
+        for name, eng in engines.items():
+            ec = eng.ecfg
+            s, npp = ec.max_slots, ec.max_len // ec.page_size
+            toks[name] = torch.zeros((s, 1), dtype=torch.int32, device=eng.device)
+            st = eng._fresh_state()
+            st.paged.table.copy_(torch.arange(s * npp, dtype=torch.int32)
+                                 .reshape(s, npp))
+            st.paged.write_limit.fill_(ec.max_len)
+            first[name], states[name] = decode_step(eng.params, st, toks[name],
+                                                    eng.cfg, ctx=eng._ctx)
+        lead = next(iter(engines))
+        for name in engines:
+            if not torch.equal(first[name], first[lead]):
+                raise AssertionError(f"step A/B: {name} logits differ from "
+                                     f"{lead}'s")
+
+        def timed(name):
+            eng, st = engines[name], states[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                _, st = decode_step(eng.params, st, toks[name], eng.cfg,
+                                    ctx=eng._ctx)
+            torch.cuda.synchronize()
+            states[name] = st
+            return 1e3 * (time.perf_counter() - t0) / steps
+
+        order = list(engines) + list(engines)[::-1]
+        times = {name: [] for name in engines}
+        for name in order * turns:
+            times[name].append(timed(name))
+    return {"batch": engines[lead].ecfg.max_slots, "steps": steps,
+            "ms_per_step": times,
+            "median_ms": {k: statistics.median(v) for k, v in times.items()},
+            "gc_objects": len(gc.get_objects())}
+
+
+def tp_path(kept: dict) -> dict:
+    """Phase 3f: tensor-parallel serving at full width, one process
+    driving every shard (``launch.mesh.TPMesh``) on this one card, so the
+    shard-local kernels run at their shard-local shapes and no byte
+    crosses cards. Each run's counters are set to 0 just before it and
+    read just after; the plain engines it is held against run outside
+    those windows.
+
+      * first, the decode-step A/B of ``decode_step_ab`` on phase 3b's
+        internlm2_1_8b params: the plain context, the tp=1 mesh's and
+        tp=2's in turns, first-step logits ``torch.equal``;
+      * internlm2_1_8b, phase 3b's params, KV widths, ranges, engine and
+        8 requests, at ``make_tp_mesh(1)`` and at tp=2 (``TPMesh([cuda:0]
+        * 2)``: column blocks through qmm at N/2, row blocks through
+        qmm_groups at K/2, pools 4 kv heads a shard): greedy streams
+        identical to phase 3b's plain engine, token for token;
+      * olmoe_1b_7b at tp=2 (32 experts a shard through grouped_qmm):
+        identical to its plain engine on 4 requests (step clock: capacity
+        couples a token to its batch-mates, so both runs batch alike);
+      * the serving CLI's int8-backed params (W8, ``quantize_params_int8``
+        of the seeded init) at full width and ``TP_INT8_LAYERS`` layers,
+        tp=2 with a shared prefix: int8_matmul on the column blocks;
+        identical to the tp=1 plain engine, with the same sharing and
+        copy-on-write counts;
+      * last, the plain context's decode step again (``decode_step_ab``
+        on one engine), to compare with the A/B's plain leg and with
+        phase 3b's.
+
+    Every serving run is profiled (``profile_serving``); ``seconds``
+    holds each part's wall time. qmm_groups launches must equal
+    (row-parallel blocks) x (shards) x (forward calls), its fold
+    (row-parallel blocks) x (forward calls)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kvcache.paged import pool_bytes
+    from repro_torch.launch.mesh import TPMesh, make_tp_mesh
+    from repro_torch.models.transformer import init_params
+    from repro_torch.quant.policy import QuantPolicy
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.loadgen import poisson_requests, trace_requests
+    from repro_torch.qtensor import is_qtensor
+    from repro_torch.serve.quantized import (qw_path, quantize_params_int8,
+                                             sharded_storage_bytes)
+    from repro_torch.utils.pytree import named_leaves
+
+    card = torch.device("cuda", 0)
+    res = {"runs": {}, "launches": {}, "seconds": {}}
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        res["seconds"][name] = now - clock[0]
+        clock[0] = now
+
+    for k in kept.values():
+        k["qparams"] = tree_to(k["qparams"], card)
+    lap("params to the card")
+
+    # the host cost of the sharded context, in turns on the same weights
+    k = kept["internlm2_1_8b"]
+    engines = {name: Engine(k["qparams"], k["cfg"], dataclasses.replace(
+        k["ecfg"], mesh=mesh), kv_bits=k["kv_bits"], kv_ranges=k["ranges"])
+        for name, mesh in (("plain", None), ("tp=1 mesh", make_tp_mesh(1)),
+                           ("tp=2", TPMesh([card] * 2)))}
+    res["step_ab"] = decode_step_ab(engines)
+    del engines
+    lap("decode-step A/B")
+
+    def run(tag, qparams, cfg, ecfg, mesh, reqs, want, **kw):
+        engine = Engine(qparams, cfg, dataclasses.replace(ecfg, mesh=mesh), **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        fin, m = engine.run(reqs())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        got = [r.output_tokens.tolist() for r in fin]
+        if got != want:
+            raise AssertionError(f"tp {tag}: greedy streams differ from the "
+                                 f"plain engine's: {got} vs {want}")
+        plan = engine._shard_plan
+        n = mesh.size
+        blocks = {mode: sum(v == mode for v in plan.values())
+                  for mode in ("col", "row", "ep")}
+        if not blocks["row"]:
+            raise AssertionError(f"tp {tag}: no row-parallel block planned")
+        # packed row blocks run qmm_groups; int8-backed ones exact int32 sums
+        qrow = sum(plan.get(qw_path(name)) == "row" and is_qtensor(leaf)
+                   for name, leaf in named_leaves(qparams))
+        fwd = m.prefill_tokens + m.decode_steps
+        if (launches["qmm_groups"] != qrow * n * fwd
+                or launches["qmm_groups_fold"] != qrow * fwd):
+            raise AssertionError(
+                f"tp {tag}: {launches['qmm_groups']} qmm_groups / "
+                f"{launches['qmm_groups_fold']} fold launches for {qrow} "
+                f"packed row blocks x {n} shards x {fwd} forward calls")
+        s = m.summary()
+        out = {"shards": n, "kv_shards": engine._kv_shards, "blocks": blocks,
+               "packed_row_blocks": qrow,
+               "serve_s": wall, "forward_calls": fwd, "launches": launches,
+               "shard_weight_bytes": sharded_storage_bytes(qparams, plan, n),
+               "shard_pool_bytes": pool_bytes(cfg, engine._pcfg) / engine._kv_shards,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "decode_tokens_per_s": s["decode_tokens_per_s"],
+               "decode_ms_per_step": 1e3 * m.decode_s / max(m.decode_steps, 1),
+               "ttft_p50": s["ttft_p50"], "kv_shared_tokens": s["kv_shared_tokens"],
+               "kv_cow_copies": s["kv_cow_copies"]}
+        for k, v in launches.items():
+            res["launches"][k] = res["launches"].get(k, 0) + v
+        out["profile"] = profile_serving(engine, cfg)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap(tag)
+        return out
+
+    # internlm2_1_8b: phase 3b's params and requests, tp=1 mesh and tp=2
+    for tag, mesh in (("internlm2_1_8b tp=1 mesh", make_tp_mesh(1)),
+                      ("internlm2_1_8b tp=2", TPMesh([card] * 2))):
+        r = res["runs"][tag] = run(tag, k["qparams"], k["cfg"], k["ecfg"], mesh,
+                                   k["requests"], k["streams"],
+                                   kv_bits=k["kv_bits"], kv_ranges=k["ranges"])
+        if r["kv_shards"] != mesh.size:
+            raise AssertionError(f"tp {tag}: pools not sharded by kv head")
+
+    # olmoe_1b_7b: expert parallelism, against its plain engine
+    k = kept["olmoe_1b_7b"]
+    ecfg = dataclasses.replace(k["ecfg"], clock="steps")
+
+    def moe_reqs():
+        rs = poisson_requests(k["cfg"], 4, rate=1.0, prompt_len=(8, 16),
+                              gen_len=8, seed=3)
+        for q in rs:
+            q.arrival_time = 0.0
+        return rs
+
+    plain, _ = Engine(k["qparams"], k["cfg"], ecfg, kv_bits=k["kv_bits"],
+                      kv_ranges=k["ranges"]).run(moe_reqs())
+    lap("olmoe_1b_7b plain engine")
+    tag = "olmoe_1b_7b tp=2"
+    r = res["runs"][tag] = run(tag, k["qparams"], k["cfg"], ecfg,
+                               TPMesh([card] * 2), moe_reqs,
+                               [q.output_tokens.tolist() for q in plain],
+                               kv_bits=k["kv_bits"], kv_ranges=k["ranges"])
+    fwd = r["forward_calls"]
+    if r["launches"]["grouped_qmm"] != r["blocks"]["ep"] * 2 * fwd or not r["blocks"]["ep"]:
+        raise AssertionError(f"tp {tag}: {r['launches']['grouped_qmm']} grouped_qmm "
+                             f"launches for {r['blocks']['ep']} expert-parallel "
+                             f"blocks x 2 shards x {fwd} forward calls")
+    del plain
+
+    # the serving CLI's int8-backed params at tp=2, with a shared prefix
+    cfg = dataclasses.replace(get_config("internlm2_1_8b"),
+                              num_layers=TP_INT8_LAYERS)
+    params = init_params(cfg, seed=0)
+    qparams, scales = quantize_params_int8(params, 8, QuantPolicy())
+    del params
+    ecfg = dataclasses.replace(k["ecfg"], max_slots=3, max_len=48,
+                               max_new_tokens=8, clock="steps",
+                               prefix_sharing=True)
+    trace = [(0.0, 40, 8), (0.0, 30, 8), (0.0, 35, 8)]
+
+    def int8_reqs():
+        return trace_requests(cfg, trace, prefix_len=24)
+
+    plain, pm = Engine(qparams, cfg, ecfg, scales=scales, kv_bits=8).run(int8_reqs())
+    lap("int8-backed params and plain engine")
+    tag = f"internlm2_1_8b int8-backed tp=2 ({TP_INT8_LAYERS} layers)"
+    r = res["runs"][tag] = run(tag, qparams, cfg, ecfg, TPMesh([card] * 2),
+                               int8_reqs, [q.output_tokens.tolist() for q in plain],
+                               scales=scales, kv_bits=8)
+    ps = pm.summary()
+    if (r["kv_shared_tokens"], r["kv_cow_copies"]) != (
+            ps["kv_shared_tokens"], ps["kv_cow_copies"]) or not ps["kv_cow_copies"]:
+        raise AssertionError(f"tp {tag}: sharing {r['kv_shared_tokens']} tokens / "
+                             f"{r['kv_cow_copies']} COW copies vs tp=1's "
+                             f"{ps['kv_shared_tokens']} / {ps['kv_cow_copies']}")
+    if r["launches"]["int8_matmul"] != r["blocks"]["col"] * 2 * r["forward_calls"]:
+        raise AssertionError(f"tp {tag}: {r['launches']['int8_matmul']} int8_matmul "
+                             f"launches for {r['blocks']['col']} column blocks")
+    for name in PATH_KERNELS["tp"]:
+        if res["launches"][name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 "tensor-parallel path")
+    del plain, qparams, scales
+    k = kept["internlm2_1_8b"]
+    res["plain_step_after"] = decode_step_ab({"plain": Engine(
+        k["qparams"], k["cfg"], k["ecfg"], kv_bits=k["kv_bits"],
+        kv_ranges=k["ranges"])})
+    lap("plain decode step again")
     return res
 
 
@@ -1327,7 +1721,7 @@ def check_grouped_equals_dense(qparams, cfg, ecfg, kv_bits, ranges) -> dict:
 def profile_serving(engine, cfg, n_top: int = 10):
     """Where the serving time goes: 4 requests (prompt 8, 16 new tokens)
     served once without and once under torch.profiler (device activity
-    only). Device busy share = summed kernel time (one stream, so kernels
+    only), on an engine that has served already. Device busy share = summed kernel time (one stream, so kernels
     do not overlap) over the unprofiled wall time; the rest is the host
     (Python dispatch)."""
     from repro_torch.serve.loadgen import poisson_requests
@@ -1339,7 +1733,6 @@ def profile_serving(engine, cfg, n_top: int = 10):
             r.arrival_time = 0.0
         return rs
 
-    engine.run(reqs())                            # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, m = engine.run(reqs())
@@ -1359,23 +1752,25 @@ def profile_serving(engine, cfg, n_top: int = 10):
 
 def device_kernels(fn, n_top: int = 10):
     """Run ``fn`` under torch.profiler (device activity only): (summed
-    kernel seconds, the ``n_top`` kernels by device time). One stream, so
-    kernels do not overlap and the sum is the device's busy time."""
-    def dev_us(e):
-        for attr in ("self_device_time_total", "self_cuda_time_total"):
-            if hasattr(e, attr):
-                return float(getattr(e, attr))
-        return 0.0
+    device seconds, the ``n_top`` kernels by device time). One stream, so
+    kernels do not overlap and the sum is the device's busy time. Reads
+    the profiler's raw events: ``key_averages`` builds an event tree in
+    Python, slow for the ~10^5 kernels of a serving window."""
+    from torch.autograd import DeviceType
 
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if dev_us(e) > 0]
-    top = sorted(evs, key=dev_us, reverse=True)[:n_top]
-    return (sum(dev_us(e) for e in evs) / 1e6,
-            [{"name": e.key[:90], "count": e.count, "device_ms": dev_us(e) / 1e3}
-             for e in top])
+    per = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            n, ns = per.get(e.name(), (0, 0))
+            per[e.name()] = (n + 1, ns + e.duration_ns())
+    top = sorted(per.items(), key=lambda kv: kv[1][1], reverse=True)[:n_top]
+    return (sum(ns for _, ns in per.values()) / 1e9,
+            [{"name": name[:90], "count": n, "device_ms": ns / 1e6}
+             for name, (n, ns) in top])
 
 
 def profile_training(arch: str, batch: int, seq: int, steps: int = 2,

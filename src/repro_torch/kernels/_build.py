@@ -34,6 +34,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "ef_sqnorm_launch": [_P, _I, _L, _L, _L, _P, _P, _P],
     "qmm_launch": [_P, _P, _P, _P, _P, _P, _I, _L, _L, _L, _L, _P],
+    "qmm_groups_launch": [_P, _P, _P, _P, _I, _L, _L, _L, _L, _P],
+    "qmm_groups_fold_launch": [_P, _P, _P, _L, _L, _L, _P],
     "grouped_qmm_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
                            _L, _L, _L, _L, _L, _L, _L, _P],
     "int8_matmul_launch": [_P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L, _P],

@@ -11,9 +11,10 @@
 // bytes of the experts that have rows: each is read once, the others
 // never.
 //
-// Design: qmm.cu with a segment dimension. The dot and fold bodies are
-// the device functions of qmm_core.cuh, so segment s's valid rows equal
-// the qmm kernel on expert_slice(w, ids[s]) bit for bit.
+// Design: qmm.cu with a segment dimension. The dot body is the device
+// function of qmm_core.cuh and the fold has qmm.cu's arithmetic, so
+// segment s's valid rows equal the qmm kernel on expert_slice(w, ids[s])
+// bit for bit.
 //  1. grouped_dots: grid (N / 128, G / 4, S x C / 4). Each block reads
 //     counts[s] and ids[s] from device memory (the host never reads
 //     them: no sync in the decode loop) and returns before touching a

@@ -1,9 +1,11 @@
 // The body shared by the qmm and grouped_qmm kernels (qmm.cu,
 // grouped_qmm.cu): one warp's exact int32 dots of up to QMM_MT int8
 // activation rows against one scale group of a packed (K*, N) W{8,6,4,3}
-// payload, and the in-order fold of the scaled group terms. Both kernels
-// run exactly this code on a row, so a grouped segment's rows equal the
-// qmm kernel's on the same expert, bit for bit.
+// payload; and grouped_qmm's in-order fold of the scaled group terms,
+// the arithmetic of qmm.cu's fold (__fmul_rn per group, then __fadd_rn
+// in group order). Both kernels run exactly this code on a row, so a
+// grouped segment's rows equal the qmm kernel's on the same expert, bit
+// for bit.
 #pragma once
 
 #include "common.cuh"

@@ -18,6 +18,8 @@ from repro_torch.kernels.int8_matmul import int8_matmul as _int8_matmul
 from repro_torch.kernels.paged_attention import (
     paged_attention as _paged_attention)
 from repro_torch.kernels.qmm import qmm as _qmm
+from repro_torch.kernels.qmm import qmm_groups as _qmm_groups
+from repro_torch.kernels.qmm import qmm_groups_fold as _qmm_groups_fold
 
 
 def fake_quant(x: torch.Tensor, scale, zero_point, bits: int,
@@ -62,6 +64,20 @@ def qmm(x_q: torch.Tensor, w, x_scale, out_dtype=torch.float32) -> torch.Tensor:
     if xs.numel() == 1:
         xs = xs.reshape(1).expand(x_q.shape[0])
     return _qmm(x_q, w, xs.reshape(-1)).to(out_dtype)
+
+
+def qmm_group_products(x_q: torch.Tensor, w) -> torch.Tensor:
+    """(M, K) int8 x packed QTensor (K, N) -> (G, M, N) fp32 per-group
+    scaled terms, no group sum: the shard-local product of a K-sharded
+    (row-parallel) block. The wrapper proves the group dots fit int32."""
+    return _qmm_groups(x_q, w)
+
+
+def fold_group_terms(terms: torch.Tensor, x_scale: torch.Tensor) -> torch.Tensor:
+    """(G, M, N) fp32 terms (gathered from the shards) and (M,) fp32 row
+    scales -> (M, N) fp32: folded over the groups in order and scaled
+    per row, as ``qmm`` folds its own terms."""
+    return _qmm_groups_fold(terms, x_scale)
 
 
 def grouped_qmm(x_q: torch.Tensor, w, x_scale: torch.Tensor,

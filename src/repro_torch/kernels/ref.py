@@ -73,12 +73,18 @@ def fold_groups(terms: torch.Tensor, dim: int) -> torch.Tensor:
     return acc
 
 
+def fold_group_terms(terms: torch.Tensor, x_scale) -> torch.Tensor:
+    """(G, M, N) fp32 group terms -> (M, N): the left fold over groups
+    0..G-1, then one multiply by the per-row scales x_scale ((M, 1) or
+    a scalar) — the ``qmm`` kernel's arithmetic on its own terms."""
+    y = fold_groups(terms, 0)
+    return y * torch.as_tensor(x_scale, dtype=torch.float32, device=y.device)
+
+
 def qmm(x_q: torch.Tensor, w, x_scale, out_dtype=torch.float32) -> torch.Tensor:
     """Grouped-scale quantized matmul W{8,6,4,3}A8: the group products
     folded over the group axis, times the per-row activation scales."""
-    y = fold_groups(qmm_group_products(x_q, w), 0)
-    xs = torch.as_tensor(x_scale, dtype=torch.float32, device=y.device)
-    return (y * xs).to(out_dtype)
+    return fold_group_terms(qmm_group_products(x_q, w), x_scale).to(out_dtype)
 
 
 def _expert_ids(x_q: torch.Tensor, expert_ids) -> torch.Tensor:

@@ -5,11 +5,16 @@ its own bit width: fp at 16 bits, int8 at 8/7/5, packed uint8 at 6/4/3
 (the QTensor byte layout along Dh), with per-page per-kv-head fp32
 scales ``(P, KV)`` from the report's calibrated activation ranges.
 Pools are written in place, copy-on-write page copies too.
+
+Under tensor-parallel serving the pools shard by kv head
+(``ShardedPages``): shard i holds heads [i·KV/n, (i+1)·KV/n) with their
+scales on the mesh's device i, and every function here that takes a
+layer's pool takes either form.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -55,10 +60,42 @@ class LayerPages:
         return self.k.shape[1]
 
 
+@dataclasses.dataclass
+class ShardedPages:
+    """One attention layer's pool split by kv head across a TPMesh:
+    ``shards[i]`` holds heads [i·KV/n, (i+1)·KV/n) and their (P, KV/n)
+    scales on ``mesh.devices[i]``. Every kv head is independent (scores,
+    softmax and the value contraction never mix heads), so each shard
+    writes and reads its heads alone."""
+
+    shards: List[LayerPages]
+    mesh: Any                # launch.mesh.TPMesh
+
+    @property
+    def num_pages(self) -> int:
+        return self.shards[0].num_pages
+
+    @property
+    def page_size(self) -> int:
+        return self.shards[0].page_size
+
+    @property
+    def bits(self) -> int:
+        return self.shards[0].bits
+
+    def heads(self, i: int) -> slice:
+        """The kv heads shard i holds."""
+        kvl = self.shards[0].k.shape[2]
+        return slice(i * kvl, (i + 1) * kvl)
+
+
+Pool = Union[LayerPages, ShardedPages]
+
+
 class PagedState(NamedTuple):
     """Paged KV component of a decode state (slots share one pool)."""
 
-    layers: Dict[str, LayerPages]   # attn-layer index (as str) -> pool
+    layers: Dict[str, Pool]         # attn-layer index (as str) -> pool
     table: torch.Tensor             # (S, NP) int32; entries >= P = unmapped
     write_limit: torch.Tensor       # (S,) int32 — positions >= limit drop
 
@@ -119,33 +156,48 @@ def kv_sites_for_layer(cfg: ModelConfig, i: int) -> Tuple[str, str]:
     return f"{base}/k", f"{base}/v"
 
 
+def _layer_pages(pcfg: PagedKVConfig, bits: int, kvh: int, hd: int,
+                 fp_dtype, k_scale: float, v_scale: float,
+                 dev: torch.device) -> LayerPages:
+    if bits >= 16:
+        dtype, last = fp_dtype, hd
+    elif bits in PACKED_BITS:
+        dtype, last = torch.uint8, packed_size(hd, bits)
+    else:
+        dtype, last = torch.int8, hd
+    shape = (pcfg.num_pages + 1, pcfg.page_size, kvh, last)
+    kb = torch.zeros(shape, dtype=dtype, device=dev)
+    vb = torch.zeros_like(kb)
+    return LayerPages(
+        k=kb[:pcfg.num_pages], v=vb[:pcfg.num_pages], k_buf=kb, v_buf=vb,
+        k_scale=torch.full((pcfg.num_pages, kvh), k_scale,
+                           dtype=torch.float32, device=dev),
+        v_scale=torch.full((pcfg.num_pages, kvh), v_scale,
+                           dtype=torch.float32, device=dev),
+        bits=bits)
+
+
 def init_paged_kv(cfg: ModelConfig, pcfg: PagedKVConfig, slots: int,
                   ranges: Optional[Mapping[str, Tuple[float, float]]] = None,
-                  device=None) -> PagedState:
-    """Zeroed pools + unmapped page tables on ``device``."""
+                  device=None, mesh=None) -> PagedState:
+    """Zeroed pools + unmapped page tables on ``device``; with a
+    ``mesh`` (a TPMesh whose size divides the kv heads) each layer's
+    pool is a ``ShardedPages`` over the mesh's devices."""
     dev = torch.device(device) if device is not None else torch.device("cpu")
     kv, hd = cfg.num_kv_heads, cfg.head_dim
-    layers: Dict[str, LayerPages] = {}
+    layers: Dict[str, Pool] = {}
     for i, bits in enumerate(pcfg.kv_bits):
-        if bits >= 16:
-            dtype, last = cfg.param_dtype, hd
-        elif bits in PACKED_BITS:
-            dtype, last = torch.uint8, packed_size(hd, bits)
-        else:
-            dtype, last = torch.int8, hd
-        shape = (pcfg.num_pages, pcfg.page_size, kv, last)
         ksite, vsite = kv_sites_for_layer(cfg, i)
-        kb = torch.zeros((shape[0] + 1,) + shape[1:], dtype=dtype, device=dev)
-        vb = torch.zeros_like(kb)
-        layers[str(i)] = LayerPages(
-            k=kb[:pcfg.num_pages], v=vb[:pcfg.num_pages], k_buf=kb, v_buf=vb,
-            k_scale=torch.full((pcfg.num_pages, kv),
-                               _scale_from_ranges(ranges, ksite, bits),
-                               dtype=torch.float32, device=dev),
-            v_scale=torch.full((pcfg.num_pages, kv),
-                               _scale_from_ranges(ranges, vsite, bits),
-                               dtype=torch.float32, device=dev),
-            bits=bits)
+        scales = (_scale_from_ranges(ranges, ksite, bits),
+                  _scale_from_ranges(ranges, vsite, bits))
+        if mesh is None:
+            layers[str(i)] = _layer_pages(pcfg, bits, kv, hd, cfg.param_dtype,
+                                          *scales, dev)
+        else:
+            layers[str(i)] = ShardedPages(
+                [_layer_pages(pcfg, bits, kv // mesh.size, hd,
+                              cfg.param_dtype, *scales, d)
+                 for d in mesh.devices], mesh)
     return PagedState(
         layers=layers,
         table=torch.full((slots, pcfg.pages_per_slot), pcfg.num_pages,
@@ -164,11 +216,18 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, bits: int) -> torch.Tens
     return unpack(q, bits).to(torch.float32) * scale[..., None]
 
 
-def gather_layer(lp: LayerPages, row: torch.Tensor, n_tokens: int,
+def gather_layer(lp: Pool, row: torch.Tensor, n_tokens: int,
                  out_dtype) -> Tuple[torch.Tensor, torch.Tensor]:
     """Page row -> dense (NP*page, KV, Dh) k and v spans, zero past
     ``n_tokens`` (the prefix-reuse read: it seeds a dense scratch state
-    so suffix prefill attends to a shared prefix without recomputing it)."""
+    so suffix prefill attends to a shared prefix without recomputing it).
+    A sharded pool's heads are gathered back in head order on the lead
+    device: the scratch state is replicated."""
+    if isinstance(lp, ShardedPages):
+        parts = [gather_layer(sh, row.to(d), n_tokens, out_dtype)
+                 for sh, d in zip(lp.shards, lp.mesh.devices)]
+        return (lp.mesh.all_gather([k for k, _ in parts], dim=1),
+                lp.mesh.all_gather([v for _, v in parts], dim=1))
     ids = torch.clamp(row.to(torch.int64), 0, lp.num_pages - 1)
     kg, vg = lp.k[ids], lp.v[ids]                  # (NP, page, KV, Dh')
     if lp.bits < 16:
@@ -182,10 +241,15 @@ def gather_layer(lp: LayerPages, row: torch.Tensor, n_tokens: int,
             torch.where(valid, vg, torch.zeros_like(vg)))
 
 
-def copy_page(lp: LayerPages, src: int, dst: int) -> LayerPages:
-    """Physical page copy, the copy-on-write primitive, in place. It
-    writes through ``k``/``v`` (views of ``k_buf``/``v_buf``), so the
-    spare page for dropped writes stays where it is."""
+def copy_page(lp: Pool, src: int, dst: int) -> Pool:
+    """Physical page copy, the copy-on-write primitive, in place (on
+    every shard of a sharded pool). It writes through ``k``/``v`` (views
+    of ``k_buf``/``v_buf``), so the spare page for dropped writes stays
+    where it is."""
+    if isinstance(lp, ShardedPages):
+        for sh in lp.shards:
+            copy_page(sh, src, dst)
+        return lp
     lp.k[dst] = lp.k[src]
     lp.v[dst] = lp.v[src]
     lp.k_scale[dst] = lp.k_scale[src]
@@ -203,10 +267,17 @@ def write_tokens(lp: LayerPages, pid: torch.Tensor, off: torch.Tensor,
     lp.v_buf[pid, off] = vq
 
 
-def scatter_span(lp: LayerPages, row: torch.Tensor, k_span: torch.Tensor,
-                 v_span: torch.Tensor, start: int, stop: int) -> LayerPages:
+def scatter_span(lp: Pool, row: torch.Tensor, k_span: torch.Tensor,
+                 v_span: torch.Tensor, start: int, stop: int) -> Pool:
     """Write dense tokens [start, stop) of (T, KV, Dh) spans into the
-    pages of ``row`` (the admission insert), in place."""
+    pages of ``row`` (the admission insert), in place; a sharded pool
+    takes each shard's heads on its device."""
+    if isinstance(lp, ShardedPages):
+        for i, (sh, d) in enumerate(zip(lp.shards, lp.mesh.devices)):
+            hs = lp.heads(i)
+            scatter_span(sh, row.to(d), k_span[:, hs].to(d),
+                         v_span[:, hs].to(d), start, stop)
+        return lp
     t = k_span.shape[0]
     pos = torch.arange(t, device=k_span.device)
     cols = torch.clamp(pos // lp.page_size, 0, row.shape[0] - 1)

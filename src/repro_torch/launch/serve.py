@@ -27,8 +27,15 @@ MoE archs (olmoe_1b_7b, deepseek_moe_16b): packed expert stacks serve
 through the grouped ragged kernel by default; ``--moe-dispatch dense``
 selects the per-expert loop (bit-identical outputs).
 
+Tensor parallelism: ``--tp N`` shards the packed or int8-backed weight
+blocks column-, row- or expert-wise and (paged) the KV page pools by kv
+head across ``make_tp_mesh(N)``, the cards cuda:0..N-1, driven by this
+one process; the tokens equal ``--tp 1``'s. It implies
+``--int8-compute`` for quantized weights. ``serve(tp=N, device="cpu")``
+puts the N shards on the CPU.
+
 Not ported yet, and refused with ``NotImplementedError`` when given a
-value other than the default: ``--tp`` (ROADMAP A5), ``--spec-*`` (A4),
+value other than the default: ``--spec-*`` (ROADMAP A4),
 ``--trace``, ``--events``, ``--metrics-*``, ``--drain-every``,
 ``--drift-*`` (A6), ``--temperature``, ``--top-k``, ``--top-p`` (A1).
 
@@ -50,12 +57,14 @@ import numpy as np
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs import get_config, smoke_config
+from repro_torch.launch.mesh import make_tp_mesh
 from repro_torch.models.transformer import init_params
 from repro_torch.quant.policy import QuantPolicy
 from repro_torch.quant.quantizer import QuantSpec, fake_quant_ref
 from repro_torch.serve import (
     Engine, EngineConfig, SamplingParams, poisson_requests, quantize_params,
-    quantize_params_int8, trace_requests, weight_storage_bytes)
+    quantize_params_int8, sharded_storage_bytes, trace_requests,
+    weight_storage_bytes)
 from repro_torch.utils.pytree import map_with_names
 
 log = logging.getLogger("repro_torch.serve")
@@ -84,7 +93,6 @@ def _refuse_unported(**flags) -> None:
     """Raise on a flag of a feature the port does not have yet (its
     ROADMAP item in the message) when it is away from its default."""
     unported = {
-        "tp": (1, "tensor-parallel serving (ROADMAP A5)"),
         "spec_k": (0, "speculative decoding (ROADMAP A4)"),
         "spec_bits": (None, "speculative decoding (ROADMAP A4)"),
         "spec_kv_bits": (None, "speculative decoding (ROADMAP A4)"),
@@ -131,10 +139,11 @@ def serve(arch: str, smoke: bool, batch: int, prompt_len: int, gen_len: int,
     the load. Returns the timings and ``metrics``, the finished
     ``requests``, the realized ``weight_bytes``, the ``engine`` (for
     further runs on the same weights) and, closed-loop, the
-    ``generated`` (B, G) matrix."""
+    ``generated`` (B, G) matrix; ``tp`` and ``shard_weight_bytes``, the
+    weight bytes one shard holds."""
     sampling = sampling or SamplingParams()
     _refuse_unported(
-        tp=tp, spec_k=spec_k, spec_bits=spec_bits, spec_kv_bits=spec_kv_bits,
+        spec_k=spec_k, spec_bits=spec_bits, spec_kv_bits=spec_kv_bits,
         trace_path=trace_path, events_path=events_path,
         metrics_file=metrics_file, metrics_port=metrics_port,
         drain_every=drain_every, drift_every=drift_every,
@@ -142,6 +151,15 @@ def serve(arch: str, smoke: bool, batch: int, prompt_len: int, gen_len: int,
         temperature=sampling.temperature, top_k=sampling.top_k,
         top_p=sampling.top_p)
     dev = resolve_device(device)
+    mesh = None
+    if tp > 1:
+        mesh = make_tp_mesh(tp, dev)
+        if (int8 or packed) and not int8_compute:
+            # sharded quantized matmuls exist only on the integer kernel
+            # route (the exact cross-shard combine): switch it on
+            log.info("--tp %d with quantized weights: enabling "
+                     "--int8-compute (required for sharded execution)", tp)
+            int8_compute = True
     cfg = smoke_config(arch) if smoke else get_config(arch)
     if int8 or packed or paged:
         # per-layer scales / page pools / payload shapes are path-keyed
@@ -184,9 +202,9 @@ def serve(arch: str, smoke: bool, batch: int, prompt_len: int, gen_len: int,
         decode_burst=decode_burst, clock=clock, int8_compute=int8_compute,
         kv_cache="paged" if paged else "dense", page_size=page_size,
         kv_pages=kv_pages, prefix_sharing=prefix_sharing,
-        moe_dispatch=moe_dispatch)
+        moe_dispatch=moe_dispatch, mesh=mesh)
     engine = Engine(params, cfg, ecfg, scales=scales, kv_bits=kv_bits,
-                    device=dev)
+                    device=None if mesh else dev)
     finished, metrics = engine.run(reqs)
     summ = metrics.summary()
 
@@ -197,6 +215,9 @@ def serve(arch: str, smoke: bool, batch: int, prompt_len: int, gen_len: int,
         "metrics": summ,
         "requests": finished,
         "weight_bytes": weight_storage_bytes(params),
+        "tp": tp,
+        "shard_weight_bytes": sharded_storage_bytes(params, engine._shard_plan,
+                                                    tp),
         "engine": engine,
     }
     if n_requests is None:
@@ -244,7 +265,10 @@ def main() -> None:
                     help="give all generated prompts a common prefix of "
                          "this many tokens (exercises prefix sharing)")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel degree (not ported yet)")
+                    help="tensor-parallel degree: shard quantized weight "
+                         "blocks (and kv-head-divisible paged pools) "
+                         "across cuda:0..N-1; outputs equal --tp 1's. "
+                         "Implies --int8-compute with --int8/--packed")
     ap.add_argument("--group-size", type=int, default=None,
                     help="scale-group size along the reduction axis for "
                          "--packed")
@@ -302,7 +326,8 @@ def main() -> None:
                 drift_every=args.drift_every, drift_stale=args.drift_stale,
                 drift_threshold=args.drift_threshold, spec_k=args.spec_k,
                 spec_bits=args.spec_bits, spec_kv_bits=args.spec_kv_bits)
-    dump = {"metrics": out["metrics"]}
+    dump = {"metrics": out["metrics"], "tp": out["tp"],
+            "shard_weight_bytes": out["shard_weight_bytes"]}
     print(json.dumps(dump, indent=2))
     if args.json:
         with open(args.json, "w") as f:

@@ -182,7 +182,8 @@ def dense_page_size(t: int) -> int:
 def attention_decode_paged(x: torch.Tensor, p: Dict, cfg: ModelConfig, ctx,
                            lp, table: torch.Tensor, pos: torch.Tensor,
                            write_limit: torch.Tensor):
-    """One-token decode against a paged KV pool (``kvcache.LayerPages``).
+    """One-token decode against a paged KV pool (``kvcache.LayerPages``,
+    or a kv-head-sharded ``kvcache.ShardedPages``).
 
     The new token's K/V are quantized with the page's scale and written
     into the slot's current page; writes at positions >= ``write_limit``
@@ -190,7 +191,7 @@ def attention_decode_paged(x: torch.Tensor, p: Dict, cfg: ModelConfig, ctx,
     touches a recycled page. The read walks the page table through
     ``ops.paged_attention``.
     """
-    from repro_torch.kvcache.paged import quantize_kv, write_tokens
+    from repro_torch.kvcache.paged import ShardedPages
 
     b, tq = x.shape[0], x.shape[1]
     posb = pos.reshape(-1, 1).to(torch.int64) \
@@ -205,14 +206,43 @@ def attention_decode_paged(x: torch.Tensor, p: Dict, cfg: ModelConfig, ctx,
                       torch.full_like(posb, num_pages))
     off = posb % page
     sp = torch.clamp(pid, 0, num_pages - 1)
+    if isinstance(lp, ShardedPages):
+        # kv-head sharding (port of the reference's
+        # ``_paged_update_attend_sharded``): shard i writes its own heads'
+        # K/V (per-head elementwise: the values of the replicated path)
+        # and decodes its grouped query heads over its pages alone; the
+        # outputs concatenated along the head axis are the replicated
+        # read, bit for bit
+        if tq != 1:
+            raise NotImplementedError(
+                "multi-token paged decode is not supported under "
+                "kv-head-sharded serving (mesh=...)")
+        g = q.shape[2] // knew.shape[2]
+        outs = []
+        for i, (sh, d) in enumerate(zip(lp.shards, lp.mesh.devices)):
+            hs = lp.heads(i)
+            outs.append(_update_attend(
+                sh, q[:, :, hs.start * g:hs.stop * g].to(d),
+                knew[:, :, hs].to(d), vnew[:, :, hs].to(d), table.to(d),
+                posb.to(d), pid.to(d), off.to(d), sp.to(d)))
+        o = lp.mesh.all_gather(outs, dim=2)
+    else:
+        o = _update_attend(lp, q, knew, vnew, table, posb, pid, off, sp)
+    o = ctx.tap("attn_out", o.to(x.dtype))
+    return ctx.matmul("wo", o, p["wo"]), lp
+
+
+def _update_attend(lp, q, knew, vnew, table, posb, pid, off, sp):
+    """Quantize the new K/V with their page's scale (or cast them to the
+    pool's dtype), write them into the pool ``lp`` and read it with
+    paged attention: (B, T, heads·Dh)."""
+    from repro_torch.kvcache.paged import quantize_kv, write_tokens
+
     if lp.bits < 16:
         kq = quantize_kv(knew, lp.k_scale[sp], lp.bits)
         vq = quantize_kv(vnew, lp.v_scale[sp], lp.bits)
     else:
-        kq = knew.to(lp.k.dtype)
-        vq = vnew.to(lp.v.dtype)
+        kq, vq = knew.to(lp.k.dtype), vnew.to(lp.v.dtype)
     write_tokens(lp, pid, off, kq, vq)
-    o = _paged_read(q, lp.k, lp.v, table, posb, lp.k_scale, lp.v_scale,
-                    lp.bits).to(x.dtype)
-    o = ctx.tap("attn_out", o)
-    return ctx.matmul("wo", o, p["wo"]), lp
+    return _paged_read(q, lp.k, lp.v, table, posb, lp.k_scale, lp.v_scale,
+                       lp.bits)

@@ -17,8 +17,9 @@ activation site ``ctx.tap(name, a)``; names are scoped with
                           ``expert_matmul`` runs packed MoE expert stacks
                           through ``grouped_qmm``) or int8-backed leaves
                           with path-keyed scales (``int8_matmul``)
-
-The tensor-parallel route of the reference is not ported yet.
+  * ``ShardedDequantContext`` — ``DequantContext`` over a tensor-parallel
+                          ``TPMesh``: the blocks of a shard plan run
+                          shard-local kernels, combined exactly
 """
 from __future__ import annotations
 
@@ -231,3 +232,147 @@ class DequantContext(Context):
         else:
             y = kops.grouped_qmm(xq, w, xs, cnt)
         return y.to(self.dtype)
+
+
+class ShardedDequantContext(DequantContext):
+    """Tensor-parallel ``DequantContext`` (port of the reference's
+    ``ShardedDequantContext``): the blocks of ``shard_plan`` (from
+    ``serve.quantized.shard_params``) run shard-local kernels on each
+    device of a ``launch.mesh.TPMesh``; unplanned blocks fall through
+    to the parent on the lead device. Activations stay replicated
+    between blocks, so the per-row activation quantization sees the
+    same full rows at every tp degree.
+
+    Why the result equals tp=1 bit for bit:
+
+      * "col" — a shard computes its output columns with the whole
+        reduction axis; every op after the integer dot is elementwise
+        per column, so the all-gather concatenates tp=1's values;
+      * "row" — a shard owns whole scale groups; its terms
+        ``f32(int32 dot) * w_scale[g]`` (``qmm_groups``) are exact and
+        shard-invariant; gathered in group order they are the tp=1
+        kernel's terms, and ``qmm_groups_fold`` folds them with the
+        ``qmm`` kernel's arithmetic, in its order. (The reference psums
+        zero-padded group slots, which is this concatenation, and then
+        sums with ``jnp.sum``, which matches its tp=1 kernel only on
+        the oracle route.) Int8-backed row blocks add the shards' int32
+        accumulators (exact) before the ``int8_matmul`` epilogue;
+      * "ep" — a shard runs ``grouped_qmm`` over its experts' segments
+        of the replicated capacity buffer; each expert's rows are
+        computed by one shard with the unsharded call's arithmetic.
+
+    Only the integer route has these exact combines, so a quantized
+    tree needs ``int8_compute=True`` (the engine enforces it).
+    """
+
+    def __init__(self, shard_trees: List[Any],
+                 shard_scales: List[Mapping[str, torch.Tensor]], dtype,
+                 mesh, shard_plan: Mapping[str, str],
+                 int8_compute: bool = True, moe_dispatch: str = "grouped",
+                 scope_prefix: str = ""):
+        super().__init__(shard_scales[0], dtype, int8_compute=int8_compute,
+                         moe_dispatch=moe_dispatch, scope_prefix=scope_prefix)
+        from repro_torch.serve.quantized import qw_path
+        from repro_torch.utils.pytree import named_leaves
+
+        self.mesh = mesh
+        self.shard_plan = dict(shard_plan)
+        # planned block path -> its per-shard leaves and int8 scales
+        self._blocks: Dict[str, List[Any]] = {}
+        for i, tree in enumerate(shard_trees):
+            for name, leaf in named_leaves(tree):
+                if qw_path(name) in self.shard_plan:
+                    self._blocks.setdefault(qw_path(name), []).append(leaf)
+        self._scales = {key: [sc[key] for sc in shard_scales]
+                        for key in self.shard_plan if key in shard_scales[0]}
+
+    def _on(self, t: torch.Tensor, i: int) -> torch.Tensor:
+        return t.to(self.mesh.devices[i])
+
+    # -- shard-local products, combined on the lead device ---------------
+    def _qmm_col(self, xq, xs, parts):
+        from repro_torch.kernels import ops as kops
+        return self.mesh.all_gather(
+            [kops.qmm(self._on(xq, i), w, self._on(xs, i))
+             for i, w in enumerate(parts)], dim=1)
+
+    def _qmm_row(self, xq, xs, parts):
+        from repro_torch.kernels import ops as kops
+        kl = parts[0].shape[0]
+        terms = [kops.qmm_group_products(
+                     self._on(xq[:, i * kl:(i + 1) * kl], i), w)
+                 for i, w in enumerate(parts)]
+        return kops.fold_group_terms(self.mesh.all_gather(terms, dim=0), xs)
+
+    def _int8_col(self, xq, xs, parts, scales):
+        from repro_torch.kernels import ops as kops
+        return self.mesh.all_gather(
+            [kops.int8_matmul(self._on(xq, i), w, self._on(xs, i),
+                              s.reshape(1, -1))
+             for i, (w, s) in enumerate(zip(parts, scales))], dim=1)
+
+    def _int8_row(self, xq, xs, parts, scales):
+        kl = parts[0].shape[0]
+        acc = self.mesh.psum(
+            [_int32_dots(self._on(xq[:, i * kl:(i + 1) * kl], i), w)
+             for i, w in enumerate(parts)])
+        # the elementwise epilogue of the int8_matmul kernel, in its order
+        return (acc.to(torch.float32) * xs.reshape(-1, 1)) \
+            * scales[0].reshape(1, -1)
+
+    # -- dispatch ----------------------------------------------------------
+    def matmul(self, name: str, x: torch.Tensor, w) -> torch.Tensor:
+        path = self.path(name)
+        mode = self.shard_plan.get(path)
+        if mode is None:
+            return super().matmul(name, x, w)
+        parts = self._blocks[path]
+        lead = x.shape[:-1]
+        xq, xs = self._rowquant(x.reshape(-1, x.shape[-1]).to(torch.float32))
+        xs = xs.reshape(-1)
+        if isinstance(w, QTensor):
+            y = (self._qmm_col(xq, xs, parts) if mode == "col"
+                 else self._qmm_row(xq, xs, parts))
+        elif mode == "col":
+            y = self._int8_col(xq, xs, parts, self._scales[path])
+        else:
+            y = self._int8_row(xq, xs, parts, self._scales[path])
+        return y.to(self.dtype).reshape(lead + (y.shape[-1],))
+
+    def expert_matmul(self, name: str, buf: torch.Tensor, w,
+                      counts: torch.Tensor) -> torch.Tensor:
+        """Blocks planned "ep" run ``grouped_qmm`` per shard over its
+        experts' segments (tokens are replicated, so the all-to-all of
+        the classical layout is a local slice) and gather the expert
+        outputs in expert order; everything else falls through to the
+        parent's replicated dispatch."""
+        if (self.shard_plan.get(self.path(name)) != "ep"
+                or self.moe_dispatch == "einsum"):
+            return super().expert_matmul(name, buf, w, counts)
+        from repro_torch.kernels import ops as kops
+        parts = self._blocks[self.path(name)]
+        e, c, d = buf.shape
+        xq, xs = self._rowquant(buf.reshape(-1, d).to(torch.float32))
+        xq, xs = xq.reshape(e, c, d), xs.reshape(e, c, 1)
+        cnt = counts.to(torch.int32)
+        el = e // len(parts)
+        ys = [kops.grouped_qmm(self._on(xq[i * el:(i + 1) * el], i), wl,
+                               self._on(xs[i * el:(i + 1) * el], i),
+                               self._on(cnt[i * el:(i + 1) * el], i))
+              for i, wl in enumerate(parts)]
+        return self.mesh.all_gather(ys, dim=0).to(self.dtype)
+
+
+def _int32_dots(xq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Exact (M, N) int32 dots of (M, K) int8 x (K, N) int8: the plain
+    version on the CPU, ``torch._int_mm`` on CUDA (rows padded to 32,
+    the smallest M it takes, where K and N suit it). Outside any kernel
+    in the reference too: a plain ``dot_general``."""
+    from repro_torch.kernels.ref import int8_dots
+    m, k = xq.shape
+    if xq.device.type != "cuda" or k % 8 or w.shape[1] % 8:
+        return int8_dots(xq, w)
+    mp = max(32, -(-m // 8) * 8)
+    xp = torch.zeros((mp, k), dtype=torch.int8, device=xq.device)
+    xp[:m] = xq
+    return torch._int_mm(xp, w)[:m]

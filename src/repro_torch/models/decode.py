@@ -41,12 +41,14 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
 
 def init_paged_decode_state(cfg: ModelConfig, pcfg, batch: int,
                             ranges: Optional[Mapping] = None,
-                            device=None) -> DecodeState:
+                            device=None, mesh=None) -> DecodeState:
+    """``mesh``: a TPMesh to shard the pools over by kv head."""
     from repro_torch.kvcache.paged import init_paged_kv
     require_ported_family(cfg)
     dev = torch.device(device) if device is not None else torch.device("cpu")
     return DecodeState(pos=torch.zeros((batch,), dtype=torch.int32, device=dev),
-                       paged=init_paged_kv(cfg, pcfg, batch, ranges, device=dev))
+                       paged=init_paged_kv(cfg, pcfg, batch, ranges, device=dev,
+                                           mesh=mesh))
 
 
 def decode_step(params, state: DecodeState, tokens: torch.Tensor,

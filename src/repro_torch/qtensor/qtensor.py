@@ -291,6 +291,72 @@ def expert_slice(qt: QTensor, e: int) -> QTensor:
                    qt.axis - 1 if qt.axis else 0)
 
 
+def pack_unit(bits: int) -> int:
+    """Logical elements per indivisible pack unit (1 for unpacked widths)."""
+    return _UNITS[bits][0] if bits in _UNITS else 1
+
+
+def shard_error(qt: QTensor, n: int, axis: int) -> Optional[str]:
+    """Why ``qt`` cannot be split into ``n`` equal shards along logical
+    ``axis``, or None if it can. The logical dim must divide into n;
+    on the pack axis a shard must own whole pack units (the 6-bit
+    4-values-in-3-bytes unit is the sharp case) and whole scale groups,
+    so each shard dequantizes with its own group-scale rows; on any
+    other axis a grouped scale dim must itself split evenly."""
+    ax = axis % qt.ndim
+    d = qt.shape[ax]
+    if n < 1:
+        return f"shard count must be >= 1 (got {n})"
+    if d % n:
+        return f"logical dim {ax} ({d}) does not divide into {n} shards"
+    span = d // n
+    if ax == qt.axis:
+        unit = pack_unit(qt.bits)
+        if span % unit:
+            return (f"shard span {span} splits a {qt.bits}-bit pack unit "
+                    f"({unit} values) on the pack axis")
+        g = qt.scale.shape[ax]
+        if g not in (1, d) and g % n:
+            return (f"{g} scale groups do not align with {n} shard "
+                    "boundaries on the pack axis")
+        if g == 1 and n > 1:
+            return ("a single scale group spans the whole pack axis and "
+                    "cannot be split — requantize with group boundaries "
+                    "aligned to shard boundaries (group_size a divisor "
+                    f"of {span})")
+    else:
+        sd = qt.scale.shape[ax]
+        if sd not in (1, d) and sd % n:
+            return (f"scale dim {ax} ({sd} groups) does not divide into "
+                    f"{n} shards")
+    return None
+
+
+def shard(qt: QTensor, n: int, axis: int) -> Tuple[QTensor, ...]:
+    """Split ``qt`` into ``n`` self-contained QTensors along logical
+    ``axis``: each shard owns ``packed_size(span)`` payload rows on the
+    pack axis (``span`` elsewhere) and its slice of the grouped scales
+    (G/n rows; a broadcast scale dim is kept whole). Views of ``qt``;
+    concatenating the shards' dequantized values gives ``qt``'s."""
+    err = shard_error(qt, n, axis)
+    if err:
+        raise ValueError(f"cannot shard QTensor{qt.shape} {qt.bits}-bit "
+                         f"x{n} on axis {axis}: {err}")
+    ax = axis % qt.ndim
+    span = qt.shape[ax] // n
+    dspan = qt.data.shape[ax] // n
+    sd = qt.scale.shape[ax]
+    sspan = sd // n if sd > 1 else 0
+    shape = list(qt.shape)
+    shape[ax] = span
+    out = []
+    for i in range(n):
+        data = qt.data.narrow(ax, i * dspan, dspan)
+        scale = qt.scale.narrow(ax, i * sspan, sspan) if sspan else qt.scale
+        out.append(QTensor(data, scale, qt.bits, tuple(shape), qt.axis))
+    return tuple(out)
+
+
 def is_qtensor(x: Any) -> bool:
     return isinstance(x, QTensor)
 

@@ -28,10 +28,21 @@ the dense and MoE families (MoE expert stacks through ``grouped_qmm``,
 or the per-expert ``qmm`` loop or the fp einsum, by ``moe_dispatch``).
 On the MoE path the row independence above stops at the experts'
 capacity, which couples a token to its batch-mates as it does in the
-reference. Not yet ported
-(raise ``NotImplementedError``): sampled decoding, speculative
-decoding, observability, tensor parallelism and the ssm, hybrid, audio
-and vlm families.
+reference.
+
+Tensor-parallel serving (``EngineConfig(mesh=make_tp_mesh(N))``, a
+``launch.mesh.TPMesh``): one process drives every shard, as the
+reference's single controller does. ``serve.quantized.shard_params``
+splits the quantized blocks column-, row- or expert-wise across the
+mesh's devices, ``ShardedDequantContext`` runs them shard by shard, and
+(paged, when the kv heads divide the mesh) the page pools shard by kv
+head; the scheduler, slot tables, token buffers and the dense scratch
+state stay on the lead device. Every combine is an integer sum or a
+concatenation in order, so an engine at any tp emits the tp=1 tokens.
+
+Not yet ported (raise ``NotImplementedError``): sampled decoding,
+speculative decoding, observability and the ssm, hybrid, audio and vlm
+families.
 """
 from __future__ import annotations
 
@@ -40,7 +51,7 @@ import dataclasses
 import logging
 import math
 import time
-from typing import List, Mapping, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,17 +59,18 @@ import torch
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs import ModelConfig
 from repro_torch.kvcache.allocator import BlockAllocator
+from repro_torch.launch.mesh import TPMesh
 from repro_torch.kvcache.paged import (
     PagedKVConfig, copy_page, gather_layer, kv_layer_count,
     page_bytes_all_layers, scatter_span)
-from repro_torch.models.context import Context
+from repro_torch.models.context import Context, ShardedDequantContext
 from repro_torch.models.decode import (
     DecodeState, decode_step, init_decode_state, init_paged_decode_state,
     prefill_into, state_insert_slot)
 from repro_torch.models.transformer import require_ported_family
 from repro_torch.qtensor import tree_has_qtensor
 from repro_torch.serve.metrics import EngineMetrics
-from repro_torch.serve.quantized import make_dequant_context
+from repro_torch.serve.quantized import make_dequant_context, shard_params
 from repro_torch.serve.request import Request, RequestStatus
 from repro_torch.serve.sampling import greedy_tokens
 from repro_torch.utils.pytree import map_with_names
@@ -87,17 +99,22 @@ class EngineConfig:
     page_size: int = 16
     kv_pages: Optional[int] = None
     prefix_sharing: bool = True   # paged: share prompt prefixes (COW)
-    # ---- not ported yet: anything but None raises ----
+    # ---- tensor-parallel serving: a launch.mesh.TPMesh ----
     mesh: Optional[object] = None
+    # ---- not ported yet: anything but None raises ----
     obs: Optional[object] = None
     spec: Optional[object] = None
 
 
 def _check_supported(cfg: ModelConfig, ecfg: EngineConfig) -> None:
-    for field in ("spec", "obs", "mesh"):
+    for field in ("spec", "obs"):
         if getattr(ecfg, field) is not None:
             raise NotImplementedError(
                 f"EngineConfig.{field} is not ported to repro_torch yet")
+    if ecfg.mesh is not None and not isinstance(ecfg.mesh, TPMesh):
+        raise ValueError(
+            f"EngineConfig.mesh must be a TPMesh (got {type(ecfg.mesh).__name__})"
+            " — build it with repro_torch.launch.mesh.make_tp_mesh")
     require_ported_family(cfg)
     if ecfg.kv_cache not in ("dense", "paged"):
         raise ValueError(f"kv_cache must be dense|paged, got {ecfg.kv_cache!r}")
@@ -116,17 +133,52 @@ class Engine:
         (``quantize_params_int8``). ``kv_bits`` (paged): None/int uniform
         or {layer -> bits} from ``kvcache.fit.allocate_kv_bits``;
         ``kv_ranges``: calibrated activation ranges for the per-page
-        scales. ``device`` defaults to the GPU."""
+        scales. ``device`` defaults to the GPU; with ``ecfg.mesh`` the
+        engine runs on the mesh's lead device."""
         _check_supported(cfg, ecfg)
-        self.device = resolve_device(device)
-        self.params = map_with_names(lambda _, leaf: leaf.to(self.device), params)
-        self.scales = {k: v.to(self.device) for k, v in (scales or {}).items()}
+        mesh = ecfg.mesh
+        self.device = resolve_device(device if mesh is None else mesh.lead)
+        if (mesh is not None and device is not None
+                and torch.device(device) != mesh.lead):
+            raise ValueError(f"device {device} is not the mesh's lead device "
+                             f"{mesh.lead}")
         self.cfg = cfg
         self.ecfg = ecfg
-        self._ctx = (make_dequant_context(cfg, self.scales,
-                                          int8_compute=ecfg.int8_compute,
-                                          moe_dispatch=ecfg.moe_dispatch)
-                     if tree_has_qtensor(params) or self.scales else Context())
+        quantized = tree_has_qtensor(params) or bool(scales)
+        self._shard_plan: Dict[str, str] = {}
+        self._kv_shards = 1
+        if mesh is None:
+            self.params = map_with_names(lambda _, leaf: leaf.to(self.device),
+                                         params)
+            self.scales = {k: v.to(self.device)
+                           for k, v in (scales or {}).items()}
+            self._ctx = (make_dequant_context(cfg, self.scales,
+                                              int8_compute=ecfg.int8_compute,
+                                              moe_dispatch=ecfg.moe_dispatch)
+                         if quantized else Context())
+        else:
+            if quantized and not ecfg.int8_compute:
+                raise ValueError(
+                    "tensor-parallel serving of quantized weights needs "
+                    "int8_compute=True: only the integer kernel route has "
+                    "an exact (bit-identical) cross-shard reduction — the "
+                    "fp-dequant path would psum floats")
+            trees, shard_scales, self._shard_plan = shard_params(
+                params, mesh, scales)
+            self.params, self.scales = trees[0], shard_scales[0]
+            self._ctx = ShardedDequantContext(
+                trees, shard_scales, cfg.param_dtype, mesh, self._shard_plan,
+                int8_compute=ecfg.int8_compute,
+                moe_dispatch=ecfg.moe_dispatch)
+            # pools shard by kv head when the heads divide the mesh;
+            # otherwise they stay replicated (the tokens are the same)
+            if (ecfg.kv_cache == "paged" and mesh.size > 1
+                    and cfg.num_kv_heads % mesh.size == 0):
+                self._kv_shards = mesh.size
+            if ecfg.kv_cache == "paged":
+                log.info("paged KV pools: %s across tp=%d",
+                         f"sharded /{self._kv_shards} by kv-head"
+                         if self._kv_shards > 1 else "replicated", mesh.size)
         self._paged = ecfg.kv_cache == "paged"
         self._pcfg: Optional[PagedKVConfig] = None
         self._kv_ranges = dict(kv_ranges) if kv_ranges else None
@@ -143,9 +195,10 @@ class Engine:
 
     def _fresh_state(self) -> DecodeState:
         if self._paged:
-            return init_paged_decode_state(self.cfg, self._pcfg,
-                                           self.ecfg.max_slots,
-                                           self._kv_ranges, device=self.device)
+            return init_paged_decode_state(
+                self.cfg, self._pcfg, self.ecfg.max_slots, self._kv_ranges,
+                device=self.device,
+                mesh=self.ecfg.mesh if self._kv_shards > 1 else None)
         return init_decode_state(self.cfg, self.ecfg.max_slots,
                                  self.ecfg.max_len, per_slot_pos=True,
                                  device=self.device)

@@ -12,13 +12,14 @@
     ``DequantContext`` runs them through ``int8_matmul``. At W8 with
     default granularity the two formats dequantize identically.
 
-Both need the unrolled layout (``layers/<i>/...``). The tensor-parallel
-placement waits for a later slice.
+Both need the unrolled layout (``layers/<i>/...``). ``shard_params``
+splits either tree across a ``launch.mesh.TPMesh`` for tensor-parallel
+serving (``ShardedDequantContext``).
 """
 from __future__ import annotations
 
 import logging
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Tuple, Union
 
 import torch
 
@@ -28,8 +29,9 @@ from repro_torch.core.fit import SensitivityReport
 from repro_torch.core.mpq import greedy_allocate
 from repro_torch.models.context import DequantContext
 from repro_torch.qtensor import (
-    qmax_for_bits, quantize as qt_quantize,
-    quantize_experts as qt_quantize_experts, tree_payload_bytes)
+    QTensor, is_qtensor, qmax_for_bits, quantize as qt_quantize,
+    quantize_experts as qt_quantize_experts, shard as qt_shard, shard_error,
+    tree_payload_bytes)
 from repro_torch.quant.policy import BitConfig, QuantPolicy
 from repro_torch.utils.pytree import map_with_names, named_leaves
 
@@ -155,6 +157,133 @@ def weight_storage_bytes(params) -> float:
     (with their scales), every other leaf at its dtype size — int8-backed
     blocks at one byte per element."""
     return float(tree_payload_bytes(params))
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel sharded materialization (EngineConfig(mesh=...))
+# ---------------------------------------------------------------------------
+
+# Megatron-style layout per block tail: column-parallel blocks shard the
+# output dim (no reduction crosses shards), row-parallel blocks shard the
+# reduction dim (each shard owns whole scale groups; the combine folds
+# the gathered group terms in order)
+COL_PARALLEL = frozenset({"wq", "wk", "wv", "w_up", "w_gate",
+                          "wz", "wx", "wB", "wC", "wdt", "head"})
+ROW_PARALLEL = frozenset({"wo", "w_down", "out_proj"})
+# 3-D stacked-expert blocks: sharded by EXPERT (dim 0), each shard owning
+# whole self-contained (K, N) blocks with their per-expert scales
+MOE_EXPERT_LEAVES = frozenset({"w_up", "w_gate", "w_down"})
+
+
+def _plan_leaf(name: str, leaf, n_shards: int
+               ) -> Tuple[Optional[str], Optional[str]]:
+    """(layout, reason not sharded) of one parameter leaf: 2-D quantized
+    storage (QTensor or int8-backed) shards "col"/"row" by its tail
+    name, a 3-D per-expert QTensor stack "ep" when the experts divide
+    the mesh; a block that fails alignment stays replicated, with the
+    reason. Shared-scale and int8-backed expert stacks stay on the
+    replicated path."""
+    tail = name.split("/")[-1]
+    if tail in COL_PARALLEL:
+        mode, axis = "col", -1
+    elif tail in ROW_PARALLEL:
+        mode, axis = "row", 0
+    else:
+        return None, None
+    if is_qtensor(leaf):
+        if len(leaf.shape) != 2:
+            if (len(leaf.shape) == 3 and tail in MOE_EXPERT_LEAVES
+                    and leaf.scale.shape[0] == leaf.shape[0]):
+                err = shard_error(leaf, n_shards, 0)
+                return ("ep", None) if err is None else (None, err)
+            return None, "non-matrix QTensor (fp-dequant einsum path)"
+        err = shard_error(leaf, n_shards, axis % 2)
+        return (mode, None) if err is None else (None, err)
+    if getattr(leaf, "dtype", None) == torch.int8 and leaf.ndim == 2:
+        dim = leaf.shape[axis]
+        if dim % n_shards:
+            return None, (f"dim {axis} ({dim}) not divisible by "
+                          f"{n_shards} shards")
+        return mode, None
+    return None, None
+
+
+def _to(leaf, dev: torch.device):
+    """A contiguous copy of a leaf (or a shard view of one) on ``dev``;
+    kernels then never copy it per call."""
+    if is_qtensor(leaf):
+        return QTensor(leaf.data.contiguous().to(dev),
+                       leaf.scale.contiguous().to(dev), leaf.bits,
+                       leaf.shape, leaf.axis)
+    return leaf.contiguous().to(dev)
+
+
+def shard_params(params, mesh, scales: Optional[Mapping] = None
+                 ) -> Tuple[List[Dict], List[Dict[str, torch.Tensor]],
+                            Dict[str, str]]:
+    """Split a quantized parameter tree across ``mesh`` (a TPMesh).
+
+    Column-parallel blocks split payload and scales along the output
+    dim; row-parallel blocks along the reduction (pack) dim, where
+    ``qtensor.shard_error`` keeps shard boundaries on whole pack units
+    and whole scale groups; per-expert QTensor stacks along the expert
+    dim. Everything else (fp leaves, blocks that fail alignment) is
+    replicated, so the sharded engine gives the tp=1 tokens however
+    much of the tree sharded.
+
+    Returns ``(trees, shard_scales, plan)``: ``trees[i]`` and
+    ``shard_scales[i]`` (the int8-backed path-keyed scales; channel-
+    sliced for column blocks) live on ``mesh.devices[i]``; ``plan`` maps
+    scoped block paths to "col" / "row" / "ep".
+    """
+    n = mesh.size
+    plan: Dict[str, str] = {}
+    parts: Dict[str, list] = {}
+    split_axis = {"col": -1, "row": 0, "ep": 0}
+
+    def place(name, leaf):
+        mode, why = _plan_leaf(name, leaf, n)
+        if mode is None:
+            if why is not None:
+                log.info("replicating %s: %s", name, why)
+            pieces = [leaf] * n
+        else:
+            plan[qw_path(name)] = mode
+            ax = split_axis[mode]
+            pieces = (qt_shard(leaf, n, ax % len(leaf.shape))
+                      if is_qtensor(leaf) else leaf.chunk(n, dim=ax))
+        parts[name] = [_to(p, d) for p, d in zip(pieces, mesh.devices)]
+        return leaf
+
+    map_with_names(place, params)
+    trees = [map_with_names(lambda name, _: parts[name][i], params)
+             for i in range(n)]
+    shard_scales: List[Dict[str, torch.Tensor]] = [{} for _ in range(n)]
+    for key, s in (scales or {}).items():
+        # int8-backed scales are (1, N): split the channel dim of column
+        # blocks, replicate the rest (N stays whole on row blocks)
+        pieces = (s.chunk(n, dim=-1)
+                  if plan.get(key) == "col" and s.shape[-1] % n == 0
+                  else [s] * n)
+        for i, (p, d) in enumerate(zip(pieces, mesh.devices)):
+            shard_scales[i][key] = p.contiguous().to(d)
+    log.info("tp=%d sharded materialization: %d col, %d row, %d ep blocks",
+             n, sum(1 for v in plan.values() if v == "col"),
+             sum(1 for v in plan.values() if v == "row"),
+             sum(1 for v in plan.values() if v == "ep"))
+    return trees, shard_scales, plan
+
+
+def sharded_storage_bytes(params, plan: Mapping[str, str],
+                          n_shards: int) -> float:
+    """PER-SHARD weight-storage bytes of a planned tree: sharded blocks
+    cost 1/n of their payload and scales on each shard, replicated
+    leaves their full size — what one shard's device holds."""
+    total = 0.0
+    for name, leaf in named_leaves(params):
+        frac = 1.0 / n_shards if qw_path(name) in plan else 1.0
+        total += frac * float(tree_payload_bytes(leaf))
+    return total
 
 
 def make_dequant_context(cfg: ModelConfig, scales=None,

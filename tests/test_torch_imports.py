@@ -28,7 +28,7 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.quant.fake_quant", "repro_torch.quant.calibration",
             "repro_torch.optim.adamw", "repro_torch.checkpoint.checkpointer",
             "repro_torch.launch.fault", "repro_torch.launch.steps",
-            "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch.launch.mesh"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -45,12 +45,15 @@ def test_qmm(bits, group_size):
     np.testing.assert_array_equal(
         tref.qmm_group_products(torch.from_numpy(xq), wt).numpy(),
         np.asarray(jref.qmm_group_products(jnp.asarray(xq), wj)))
-    y, dots = kqmm.qmm(torch.from_numpy(xq), wt, torch.from_numpy(xs),
-                       return_dots=True)
+    y, terms = kqmm.qmm(torch.from_numpy(xq), wt, torch.from_numpy(xs),
+                        return_terms=True)
     g = wt.scale.shape[0]
     want_dots = np.einsum("mgk,gkn->gmn", xq.astype(np.int64).reshape(m, g, -1),
                           np.asarray(wj.unpack()).astype(np.int64).reshape(g, -1, n))
-    np.testing.assert_array_equal(dots.numpy(), want_dots)
+    # the folded terms: exact dots, one fp32 rounding of the scale product
+    np.testing.assert_array_equal(
+        terms.numpy(),
+        want_dots.astype(np.float32) * wt.scale.reshape(g, 1, n).numpy())
     np.testing.assert_allclose(y.numpy(), np.asarray(jref.qmm(jnp.asarray(xq), wj,
                                                               jnp.asarray(xs))),
                                rtol=1e-5, atol=1e-6)

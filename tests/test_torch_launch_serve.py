@@ -131,7 +131,7 @@ def test_serve_open_loop_moe_packed():
 
 
 @pytest.mark.parametrize("flag", [
-    dict(tp=2), dict(spec_k=2), dict(spec_bits="4"), dict(spec_kv_bits=8),
+    dict(spec_k=2), dict(spec_bits="4"), dict(spec_kv_bits=8),
     dict(trace_path="t.json"), dict(events_path="e.jsonl"),
     dict(metrics_file="m.prom"), dict(metrics_port=0), dict(drain_every=4),
     dict(drift_every=1), dict(drift_stale=2.0), dict(drift_threshold=2.0),

@@ -124,8 +124,12 @@ def test_entry_points_raise_without_gpu(packed, monkeypatch):
 @pytest.mark.parametrize("bad", [dict(spec=object()), dict(obs=object()),
                                  dict(mesh=object())])
 def test_unsupported_engine_options_raise(packed, bad):
+    """Options not ported yet raise NotImplementedError; a mesh that is
+    not a TPMesh raises ValueError naming make_tp_mesh."""
     _, _, tcfg, tq = packed
-    with pytest.raises(NotImplementedError):
+    exc, match = ((ValueError, "make_tp_mesh") if "mesh" in bad
+                  else (NotImplementedError, "not ported"))
+    with pytest.raises(exc, match=match):
         TEngine(tq, tcfg, TEngineConfig(**dict(ECFG, **bad)), device="cpu")
 
 
