@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --kernels-only  # build + kernel checks only
+    python3 chip_smoke.py --only flash_attention,grouped_qmm  # those checks only
 
 Phases, in order; any failure exits non-zero:
   1. print the card and its power limit; build the CUDA kernels from
@@ -272,8 +273,14 @@ def check_qmm_groups(timer, gen, rows):
         del w, qt, terms, want, xg, wg
 
 
-GROUPED_SHAPES = [("w_up/w_gate", 2048, 1024), ("w_down", 1024, 2048)]
-GROUPED_CAPS = (1, 5, 20)     # decode/prefill capacity; ragged; report batch
+# (name, K, N, group size): olmoe's expert projections, and a ragged
+# shape whose rows, groups and scales miss 16-byte alignment (the
+# kernel's byte-wise staging)
+GROUPED_SHAPES = [("w_up/w_gate", 2048, 1024, 128), ("w_down", 1024, 2048, 128),
+                  ("ragged", 960, 1001, 120)]
+# decode/prefill capacity; ragged; report batch; a 512-token prefill at
+# capacity factor 1.25 (512 * 1.25 * top-8 / 64 experts), two 64-row tiles
+GROUPED_CAPS = (1, 5, 20, 80)
 N_EXPERTS = 64
 
 
@@ -296,10 +303,10 @@ def check_grouped_qmm(timer, gen, rows):
     from repro_torch.qtensor import expert_slice, quantize_experts
 
     s = N_EXPERTS
-    for name, k, n in GROUPED_SHAPES:
+    for name, k, n, gsize in GROUPED_SHAPES:
         w = torch.randn((s, k, n), generator=gen, device="cuda") / k ** 0.5
         for bits in (8, 6, 4, 3):
-            qt = quantize_experts(w, bits, group_size=128)
+            qt = quantize_experts(w, bits, group_size=gsize)
             wd = qt.dequantize(torch.bfloat16)
             for c in GROUPED_CAPS:
                 xq = torch.randint(-127, 128, (s, c, k), generator=gen,
@@ -334,7 +341,7 @@ def check_grouped_qmm(timer, gen, rows):
                 active = [si for si in range(s) if cnt_h[si]]
                 wsel = wd[ids[active].long()].contiguous()        # (A, K, N)
                 xb = (xq[active].float() * xs[active]).to(torch.bfloat16)
-                groups = k // 128
+                groups = k // gsize
                 nbytes = (len(active) * (qt.data[0].numel() + groups * n * 4)
                           + s * c * k + s * c * 4 + s * c * n * 4 + 2 * s * 4)
                 b_ms, b_by = bound_ms(nbytes, 2.0 * sum(cnt_h) * k * n, INT8_OPS)
@@ -607,7 +614,11 @@ def check_fake_quant(timer, gen, rows):
 
 # (name, B, H, S, T, D, dtype, causal): the model's prefill shapes at 2048
 # and 4096 tokens, cross attention, causal S < T (bottom-right), ragged
-# S and T, fp32 at D=32 and fp16 at D=64
+# S and T, fp32 at D=32 and fp16 at D=64; then the head dims of the other
+# configurations: phi3's prefill at D=96 (its own width), zamba2's D=112
+# (width 128, columns past D filled by the TMA), the smoke configs' D=12
+# (copied zero-padded to width 32) and D=16, D=256 (64-key tiles), fp32
+# at D=96 and at D=12
 FLASH_CASES = [
     ("causal S=T=2048", 4, 16, 2048, 2048, 128, torch.bfloat16, True),
     ("causal S=T=4096", 4, 16, 4096, 4096, 128, torch.bfloat16, True),
@@ -617,6 +628,14 @@ FLASH_CASES = [
     ("full ragged S=77 T=300", 2, 16, 77, 300, 128, torch.bfloat16, False),
     ("causal fp32 D=32", 2, 4, 256, 256, 32, torch.float32, True),
     ("full fp16 D=64 S=100 T=384", 2, 8, 100, 384, 64, torch.float16, False),
+    ("causal S=T=2048 phi3 D=96", 2, 32, 2048, 2048, 96, torch.bfloat16, True),
+    ("causal S=T=1024 zamba2 D=112", 2, 32, 1024, 1024, 112, torch.bfloat16,
+     True),
+    ("causal ragged S=T=77 D=12", 2, 4, 77, 77, 12, torch.bfloat16, True),
+    ("full D=16 S=100 T=300", 2, 4, 100, 300, 16, torch.bfloat16, False),
+    ("full fp16 D=256 S=128 T=512", 2, 8, 128, 512, 256, torch.float16, False),
+    ("causal fp32 D=96", 2, 8, 256, 256, 96, torch.float32, True),
+    ("causal fp32 ragged D=12 S=T=77", 2, 4, 77, 77, 12, torch.float32, True),
 ]
 
 
@@ -693,13 +712,46 @@ def check_flash_attention(timer, gen, rows):
         raise AssertionError("flash_attention launched on a refused shape")
 
 
+# (kernel, check, keyword arguments), in the order phase 2 runs them
+PHASE2 = [("ef_sqnorm", check_ef_sqnorm, {}),
+          ("paged_attention", check_paged_attention, {}),
+          ("paged_attention", check_paged_attention, {"kvh": 16, "g": 1}),  # olmoe's GQA
+          ("qmm", check_qmm, {}),
+          ("qmm_groups", check_qmm_groups, {}),
+          ("grouped_qmm", check_grouped_qmm, {}),
+          ("int8_matmul", check_int8_matmul, {}),
+          ("fake_quant", check_fake_quant, {}),
+          ("flash_attention", check_flash_attention, {})]
+
+
+def ptxas_summary(text: str) -> str:
+    """The kernel names, registers, spills and shared memory of the last
+    build's ``-Xptxas -v`` output, one kernel a line."""
+    out, name = [], None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+        elif name and ("registers" in line or "spill" in line):
+            out.append(f"{name}: {line.split('ptxas info    :')[-1].strip()}")
+        elif line.startswith("==") or "warning" in line or "error" in line:
+            out.append(line)
+    return "\n".join(out)
+
+
 # --------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks (phase 2)")
+    ap.add_argument("--only", default="",
+                    help="comma-separated kernels whose phase-2 checks run "
+                         "(the others are skipped); implies --kernels-only")
     args = ap.parse_args()
+    only = {name for name in args.only.split(",") if name}
+    if only - {name for name, _, _ in PHASE2}:
+        ap.error(f"--only: unknown kernels {sorted(only - {n for n, _, _ in PHASE2})}")
+    args.kernels_only = args.kernels_only or bool(only)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -720,9 +772,10 @@ def main() -> int:
     _build.lib()
     log(f"phase 1: built kernels in {time.perf_counter() - t0:.1f} s "
         f"({_build.BUILD_DIR})")
-    ptx = sorted(_build.BUILD_DIR.glob("*/ptxas.log"))
+    ptx = sorted(_build.BUILD_DIR.glob("*/ptxas.log"),
+                 key=lambda p: p.stat().st_mtime)
     if ptx:
-        log(ptx[-1].read_text()[-3000:])
+        log(ptxas_summary(ptx[-1].read_text()))
 
     # ---- phase 2: kernels vs plain versions ----
     gen = torch.Generator(device="cuda")
@@ -730,15 +783,9 @@ def main() -> int:
     timer = Timer()
     rows: list = []
     t0 = time.perf_counter()
-    check_ef_sqnorm(timer, gen, rows)
-    check_paged_attention(timer, gen, rows)
-    check_paged_attention(timer, gen, rows, kvh=16, g=1)      # olmoe's GQA
-    check_qmm(timer, gen, rows)
-    check_qmm_groups(timer, gen, rows)
-    check_grouped_qmm(timer, gen, rows)
-    check_int8_matmul(timer, gen, rows)
-    check_fake_quant(timer, gen, rows)
-    check_flash_attention(timer, gen, rows)
+    for name, check, kw in PHASE2:
+        if not only or name in only:
+            check(timer, gen, rows, **kw)
     log(f"phase 2: {len(rows)} kernel checks passed in "
         f"{time.perf_counter() - t0:.1f} s")
     result = {"card": card, "kind": kind, "kernel_checks": rows}
@@ -863,7 +910,7 @@ KERNELS = [
      "src/repro/kernels/paged_attention.py:90",
      "B=4 KV=8 G=2 Dh=128 page=16 W8"),
     ("grouped_qmm", "src/repro_torch/kernels/csrc/grouped_qmm.cu",
-     "src/repro/kernels/grouped_qmm.py:125", "w_up/w_gate 2048x1024 W4 C=1"),
+     "src/repro/kernels/grouped_qmm.py:125", "w_up/w_gate 2048x1024 W4 C=20"),
     ("int8_matmul", "src/repro_torch/kernels/csrc/int8_matmul.cu",
      "src/repro/kernels/int8_matmul.py:53", "head 2048x92544 M=4"),
     ("fake_quant", "src/repro_torch/kernels/csrc/fake_quant.cu",

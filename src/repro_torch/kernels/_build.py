@@ -43,8 +43,8 @@ SIGNATURES = {
                                _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "fake_quant_launch": [_P, _P, _I, _L, _P, _P, _F, _P],
     "fake_quant_per_channel_launch": [_P, _P, _I, _L, _L, _L, _P, _P, _F, _P],
-    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                               _P],
+    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _F, _P],
 }
 
 

@@ -5,43 +5,78 @@
 // P rounded to v's dtype before P·V, as the reference does.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:
-// flash_attention_pallas (_flash_kernel). Bound by operations at the
-// model's shapes (4·S·T·D flops against (2S + 2T)·D elements moved;
-// 6.9e10 flops at B=4, H=16, S=T=2048, D=128 causal).
+// flash_attention_pallas (_flash_kernel). Bound by operations: 4·S·T·D
+// flops (halved by a causal mask) against (2S + 2T)·D elements moved;
+// 6.9e10 flops at B=4, H=16, S=T=2048, D=128 causal, 0.070 ms at the
+// H100's 989 TFLOP/s bf16.
 //
-// Design, common to both kernels:
-//  - One block per (batch·head, 64-query tile). The TPU grid's sequential
-//    kv axis becomes a loop inside the block over K/V tiles of 64 rows,
-//    staged in shared memory (rows padded by 16 bytes against bank
-//    conflicts) and double-buffered with cp.async: tile i+1 is in flight
-//    while tile i is used. m, l and the accumulator stay in registers.
-//  - Causal: the loop stops at the last tile the tile's last query row
-//    can see instead of masking whole tiles; within a tile, and for the
-//    ragged S and T tails, entries are masked in the kernel (the TPU
-//    wrapper's padding is not masked). Masked probabilities are exactly
-//    0, and every row's first tile holds a visible key (S <= T).
-//  - Each output row is computed by one block in kv order, so it does not
-//    depend on its batch-mates and is the same from run to run.
-// bf16/fp16 run both products on the tensor cores (flash_fwd_mma_kernel,
-// mma.sync); fp32 inputs, which the tensor cores take only as TF32, run
-// them as fp32 FMAs on the CUDA cores (flash_fwd_kernel).
+// Any head dim D <= 256 runs at a kernel width W, the least of {32, 64,
+// 96, 128, 256} >= D. Columns D..W-1 are zero: the TMA (or cp.async)
+// fills them when a row of D elements is a whole number of 16-byte
+// chunks, and otherwise the wrapper hands in copies zero-padded to W
+// (``ld`` is the row stride of q, k and v in elements). The scale stays
+// 1/sqrt(D) of the true D, and only the first D columns of o are
+// written.
+//
+// bf16 / fp16 (flash_fwd_wgmma_kernel): persistent CTAs, one an SM, each
+// walking work tiles (batch·head, 128 query rows) gridDim.x apart, causal
+// ones heaviest first, with three warpgroups:
+//  - a producer warpgroup, whose first thread loads a work tile's Q and
+//    then its K and V tiles (128 keys at W <= 128, 64 above) by TMA into
+//    2-stage rings in shared memory. K and V stages have their own
+//    "full" mbarriers (signalled with the TMA's byte count) and "empty"
+//    ones (one arrival per consumer warp): a K stage frees as soon as its
+//    S = Q K^T is done, a V stage a tile later, Q after the work tile's
+//    last S = Q K^T, so the next tile's Q and first K load while this
+//    one's last P V and stores run.
+//  - two consumer warpgroups of 64 query rows each (the wgmma M). Each
+//    forms S = Q K^T with wgmma, Q and K both read from shared memory
+//    (128- or 64-byte swizzle, the TMA's), keeps m and l in registers,
+//    takes P = 2^(S·scale·log2 e - m) (the scale folded into one FMA,
+//    ex2.approx on the SFU), masks only the tiles that cross the
+//    diagonal or the ragged ends, rounds P to the input dtype in
+//    registers and feeds it as the A operand of O += P V (the
+//    register-shared wgmma, V read MN-major through the descriptor's
+//    transpose bit).
+//  Overlap: a warpgroup issues tile j's S = Q K^T together with tile
+//  j-1's O += P V and runs tile j's softmax while that P V is on the
+//  tensor cores; and the two warpgroups take turns to issue (named
+//  barriers, "ping-pong"), so one's softmax runs beside the other's
+//  products. setmaxnreg moves registers from the producer (40) to the
+//  consumers (232). Causal work runs heaviest first, so the longest rows
+//  do not form the tail. Each output row is computed by one CTA in kv
+//  order: it does not depend on its batch-mates and is the same from run
+//  to run.
+// What bounds it now: the tensor cores idle while a warpgroup's first S
+// of a work tile has no P V beside it and its last P V has no S, and
+// while both warpgroups wait on a load; the softmax (an ex2 and an FMA a
+// score, a max and a sum a row) is about half the products' time and
+// only the ping-pong hides it.
+//
+// fp32 (flash_fwd_kernel), which the tensor cores would take only as
+// TF32: CUDA-core FMAs, one block per (batch·head, 64-query tile) over
+// K/V tiles of 64 keys, cp.async double-buffered (single-buffered at
+// W = 256, where two stages do not fit), rows padded by 16 bytes against
+// bank conflicts; the same widths, zero columns and causal schedule.
+#include <cuda.h>
 #include <type_traits>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int FA_BQ = 64;          // query rows per block
-constexpr int FA_BKV = 64;         // key/value rows per tile
-constexpr int FA_THREADS = 256;
-constexpr int FA_PLD = FA_BKV + 4; // padded row of the P tile (floats)
 constexpr float FA_NEG = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int src_bytes = valid ? 16 : 0;      // 0: zero-fill the row's chunk
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+  const int src_bytes = valid ? 16 : 0;      // 0: zero-fill the chunk
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem)),
                "l"(gmem), "r"(src_bytes));
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -52,49 +87,72 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// 64 rows starting at row0 of a (nrows, D) matrix into a smem tile with
-// rows padded by 16 bytes, by NT threads; rows past nrows are zero-filled.
-template <typename T, int D, int NT>
-__device__ __forceinline__ void load_tile(T* sm, const T* __restrict__ g,
-                                          int row0, int nrows) {
-  constexpr int VE = 16 / sizeof(T);
-  constexpr int CPR = D / VE;            // 16-byte chunks per row
-  constexpr int LD = D + VE;
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// The query tile a block takes: causal tiles heaviest first.
+__device__ __forceinline__ int query_tile(int causal) {
+  return causal ? (int)(gridDim.y - 1 - blockIdx.y) : (int)blockIdx.y;
+}
+
+// ---------------------------------------------------------------------------
+// fp32: SIMT. Thread (rg, cg) = (tid / 16, tid % 16) owns query rows
+// 4rg..4rg+3; it scores keys cg + 16j (j < 4) and accumulates output
+// columns cg·W/16 .. +W/16. A row's max and sum are reduced over its 16
+// threads (one half-warp) with xor shuffles; P goes through shared memory.
+// ---------------------------------------------------------------------------
+
+constexpr int FA_BQ = 64;          // query rows per block
+constexpr int FA_BKV = 64;         // key/value rows per tile
+constexpr int FA_THREADS = 256;
+constexpr int FA_PLD = FA_BKV + 4; // padded row of the P tile (floats)
+constexpr size_t SMEM_LIMIT = 227 * 1024;
+
+// 64 rows starting at row0 of a (nrows, ld) matrix into a smem tile of W
+// columns with rows padded by 16 bytes, by NT threads; rows past nrows
+// and columns past dv (a multiple of 4) are zero-filled.
+template <int W, int NT>
+__device__ __forceinline__ void load_tile(float* sm, const float* __restrict__ g,
+                                          int row0, int nrows, int ld, int dv) {
+  constexpr int CPR = W / 4;             // 16-byte chunks per row
+  constexpr int LD = W + 4;
   for (int c = threadIdx.x; c < FA_BQ * CPR; c += NT) {
     const int r = c / CPR, cc = c % CPR;
-    const bool valid = row0 + r < nrows;
-    const T* src = g + (long long)(valid ? row0 + r : 0) * D + cc * VE;
-    cp_async16(sm + r * LD + cc * VE, src, valid);
+    const bool valid = row0 + r < nrows && cc * 4 < dv;
+    const float* src = g + (valid ? (long long)(row0 + r) * ld + cc * 4 : 0);
+    cp_async16(sm + r * LD + cc * 4, src, valid);
   }
 }
 
-// N consecutive elements from smem, with the widest loads their alignment
-// (N * sizeof(T) bytes) allows.
-template <typename T, int N>
-__device__ __forceinline__ void load_vals(const T* p, float (&out)[N]) {
-  constexpr int B = N * (int)sizeof(T);
-  if constexpr (B % 16 == 0) {
+// N consecutive floats from smem, with the widest loads their alignment
+// (N * 4 bytes) allows.
+template <int N>
+__device__ __forceinline__ void load_vals(const float* p, float (&out)[N]) {
+  if constexpr (N % 4 == 0) {
 #pragma unroll
-    for (int w = 0; w < B / 16; ++w) {
-      const uint4 u = reinterpret_cast<const uint4*>(p)[w];
-      const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-      for (int j = 0; j < 16 / (int)sizeof(T); ++j)
-        out[w * (16 / sizeof(T)) + j] = to_f(e[j]);
+    for (int w = 0; w < N / 4; ++w) {
+      const float4 u = reinterpret_cast<const float4*>(p)[w];
+      out[4 * w] = u.x;
+      out[4 * w + 1] = u.y;
+      out[4 * w + 2] = u.z;
+      out[4 * w + 3] = u.w;
     }
-  } else if constexpr (B == 8) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    const T* e = reinterpret_cast<const T*>(&u);
+  } else if constexpr (N % 2 == 0) {
 #pragma unroll
-    for (int j = 0; j < N; ++j) out[j] = to_f(e[j]);
-  } else if constexpr (B == 4) {
-    const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
-    const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-    for (int j = 0; j < N; ++j) out[j] = to_f(e[j]);
+    for (int w = 0; w < N / 2; ++w) {
+      const float2 u = reinterpret_cast<const float2*>(p)[w];
+      out[2 * w] = u.x;
+      out[2 * w + 1] = u.y;
+    }
   } else {
 #pragma unroll
-    for (int j = 0; j < N; ++j) out[j] = to_f(p[j]);
+    for (int j = 0; j < N; ++j) out[j] = p[j];
   }
 }
 
@@ -109,47 +167,44 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
-template <typename T, int D>
-constexpr size_t smem_bytes() {
-  return (size_t)5 * FA_BQ * (D + 16 / sizeof(T)) * sizeof(T) +
+template <int W, int NST>
+constexpr size_t smem_bytes_f32() {
+  return (size_t)(1 + 2 * NST) * FA_BQ * (W + 4) * sizeof(float) +
          (size_t)FA_BQ * FA_PLD * sizeof(float);
 }
+template <int W>
+constexpr int f32_stages() {
+  return smem_bytes_f32<W, 2>() <= SMEM_LIMIT ? 2 : 1;
+}
 
-// ---------------------------------------------------------------------------
-// fp32: SIMT. Thread (rg, cg) = (tid / 16, tid % 16) owns query rows
-// 4rg..4rg+3; it scores keys cg + 16j (j < 4) and accumulates output
-// columns cg·D/16 .. +D/16. A row's max and sum are reduced over its 16
-// threads (one half-warp) with xor shuffles; P goes through shared memory.
-// ---------------------------------------------------------------------------
-
-template <typename T, int D>
+template <int W, int NST>
 __global__ void __launch_bounds__(FA_THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int S, int Tk,
-                 int causal, float scale) {
-  constexpr int VE = 16 / sizeof(T);   // elements per 16-byte chunk
-  constexpr int LD = D + VE;           // padded smem row (elements)
-  constexpr int DC = D / 16;           // output columns per thread
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sQ = reinterpret_cast<T*>(smem_raw);
-  T* sK = sQ + FA_BQ * LD;             // two stages
-  T* sV = sK + 2 * FA_BKV * LD;        // two stages
-  float* sP = reinterpret_cast<float*>(sV + 2 * FA_BKV * LD);
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int S,
+                 int Tk, int D, int ld, int causal, float scale) {
+  constexpr int LD = W + 4;            // padded smem row (elements)
+  constexpr int DC = W / 16;           // output columns per thread
+  extern __shared__ __align__(16) unsigned char fa_smem[];
+  float* sQ = reinterpret_cast<float*>(fa_smem);
+  float* sK = sQ + FA_BQ * LD;         // NST stages
+  float* sV = sK + NST * FA_BKV * LD;  // NST stages
+  float* sP = sV + NST * FA_BKV * LD;
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * FA_BQ;
-  const T* qb = q + (long long)bh * S * D;
-  const T* kb = k + (long long)bh * Tk * D;
-  const T* vb = v + (long long)bh * Tk * D;
+  const int bh = blockIdx.x;
+  const int q0 = query_tile(causal) * FA_BQ;
+  const float* qb = q + (long long)bh * S * ld;
+  const float* kb = k + (long long)bh * Tk * ld;
+  const float* vb = v + (long long)bh * Tk * ld;
   const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
   const int off = Tk - S;              // bottom-right causal alignment
+  const int dv = min(ld, W);           // columns present in memory
   int kv_end = Tk;
   if (causal) kv_end = min(Tk, min(q0 + FA_BQ, S) + off);
   const int ntiles = (kv_end + FA_BKV - 1) / FA_BKV;
 
-  load_tile<T, D, FA_THREADS>(sQ, qb, q0, S);
-  load_tile<T, D, FA_THREADS>(sK, kb, 0, Tk);
-  load_tile<T, D, FA_THREADS>(sV, vb, 0, Tk);
+  load_tile<W, FA_THREADS>(sQ, qb, q0, S, ld, dv);
+  load_tile<W, FA_THREADS>(sK, kb, 0, Tk, ld, dv);
+  load_tile<W, FA_THREADS>(sV, vb, 0, Tk, ld, dv);
   cp_async_commit();
 
   float m[4], l[4], acc[4][DC];
@@ -162,18 +217,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   for (int it = 0; it < ntiles; ++it) {
-    const int st = it & 1;
-    if (it + 1 < ntiles) {
-      load_tile<T, D, FA_THREADS>(sK + (st ^ 1) * FA_BKV * LD, kb, (it + 1) * FA_BKV, Tk);
-      load_tile<T, D, FA_THREADS>(sV + (st ^ 1) * FA_BKV * LD, vb, (it + 1) * FA_BKV, Tk);
+    const int st = (NST == 2) ? (it & 1) : 0;
+    if (NST == 2 && it + 1 < ntiles) {
+      load_tile<W, FA_THREADS>(sK + (st ^ 1) * FA_BKV * LD, kb, (it + 1) * FA_BKV, Tk, ld, dv);
+      load_tile<W, FA_THREADS>(sV + (st ^ 1) * FA_BKV * LD, vb, (it + 1) * FA_BKV, Tk, ld, dv);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const T* cK = sK + st * FA_BKV * LD;
-    const T* cV = sV + st * FA_BKV * LD;
+    const float* cK = sK + st * FA_BKV * LD;
+    const float* cV = sV + st * FA_BKV * LD;
 
     // scores of rows 4rg+i against keys cg+16j
     float sc[4][4];
@@ -182,21 +237,21 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
 #pragma unroll 1
-    for (int d0 = 0; d0 < D; d0 += VE) {
-      float qv[4][VE], kv[4][VE];
+    for (int d0 = 0; d0 < W; d0 += 4) {
+      float qv[4][4], kv[4][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) load_vals<T, VE>(sQ + (rg * 4 + i) * LD + d0, qv[i]);
+      for (int i = 0; i < 4; ++i) load_vals<4>(sQ + (rg * 4 + i) * LD + d0, qv[i]);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) load_vals<T, VE>(cK + (cg + 16 * j) * LD + d0, kv[j]);
+      for (int j = 0; j < 4; ++j) load_vals<4>(cK + (cg + 16 * j) * LD + d0, kv[j]);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int e = 0; e < VE; ++e) sc[i][j] = fmaf(qv[i][e], kv[j][e], sc[i][j]);
+          for (int e = 0; e < 4; ++e) sc[i][j] = fmaf(qv[i][e], kv[j][e], sc[i][j]);
     }
 
-    // online softmax; P rounded to T into smem
+    // online softmax; P into smem
     const int kv0 = it * FA_BKV;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -218,7 +273,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const float p = ok[j] ? expf(sc[i][j] - mn) : 0.f;
         rs += p;
-        sP[(rg * 4 + i) * FA_PLD + cg + 16 * j] = to_f(from_f<T>(p));
+        sP[(rg * 4 + i) * FA_PLD + cg + 16 * j] = p;
       }
       rs = half_warp_sum(rs);
       l[i] = l[i] * alpha + rs;
@@ -238,7 +293,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         float vv[DC];
-        load_vals<T, DC>(cV + (j0 + jj) * LD + cg * DC, vv);
+        load_vals<DC>(cV + (j0 + jj) * LD + cg * DC, vv);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float p = jj == 0 ? pv[i].x : jj == 1 ? pv[i].y : jj == 2 ? pv[i].z : pv[i].w;
@@ -248,6 +303,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     __syncthreads();   // the next iteration refills this stage and sP
+    if (NST == 1 && it + 1 < ntiles) {
+      load_tile<W, FA_THREADS>(sK, kb, (it + 1) * FA_BKV, Tk, ld, dv);
+      load_tile<W, FA_THREADS>(sV, vb, (it + 1) * FA_BKV, Tk, ld, dv);
+      cp_async_commit();
+    }
   }
 
 #pragma unroll
@@ -255,276 +315,565 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qp = q0 + rg * 4 + i;
     if (qp >= S) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* orow = o + ((long long)bh * S + qp) * D + cg * DC;
+    float* orow = o + ((long long)bh * S + qp) * D;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) orow[c] = from_f<T>(acc[i][c] / den);
+    for (int c = 0; c < DC; ++c)
+      if (cg * DC + c < D) orow[cg * DC + c] = acc[i][c] / den;
   }
 }
 
 // ---------------------------------------------------------------------------
-// bf16 / fp16: the two products on the tensor cores (mma.sync m16n8k16,
-// fp32 accumulate). Four warps, each owning 16 of the block's 64 query
-// rows: Q is held as A fragments in registers, K and V tiles come from
-// the same cp.async double buffer through ldmatrix (V transposed), and P
-// goes from the score accumulators straight into the A fragments of P·V
-// (rounded to the input dtype on the way), never through shared memory.
-// A row's max and sum are reduced over the 4 lanes that hold it.
+// bf16 / fp16: warp-specialised wgmma with a TMA-fed ring.
 // ---------------------------------------------------------------------------
 
-constexpr int FM_THREADS = 128;
+constexpr int WG_BQ = 128;                 // query rows per CTA
+constexpr int WG_THREADS = 384;            // 2 consumer + 1 producer warpgroup
+constexpr int WG_STAGES = 2;
+constexpr int WG_CONSUMER_WARPS = 8;       // arrivals that free a ring stage
 
-template <typename T> struct Mma;
-template <> struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&h);
-  }
-  static __device__ __forceinline__ void run(float (&c)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-};
-template <> struct Mma<__half> {
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 h = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&h);
-  }
-  static __device__ __forceinline__ void run(float (&c)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, "
-        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
+template <int W>
+struct WgCfg {
+  static constexpr int CB = (W % 64 == 0) ? 64 : 32;  // columns per swizzle block
+  static constexpr int NCB = W / CB;
+  static constexpr int ROWB = CB * 2;                  // bytes of a row in a block
+  static constexpr uint32_t LAYOUT = ROWB == 128 ? 1 : 2;  // wgmma: 128B / 64B swizzle
+  static constexpr int BKV = W <= 128 ? 128 : 64;
+  static constexpr int Q_BYTES = WG_BQ * W * 2;
+  static constexpr int KV_BYTES = BKV * W * 2;        // one of K, V
+  static constexpr int TILE_BYTES = Q_BYTES + WG_STAGES * 2 * KV_BYTES;
+  // tiles, then 4·STAGES + 2 mbarriers, with room to align the base to 1 KB
+  static constexpr size_t SMEM = TILE_BYTES + 128 + 1024;
 };
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count));
 }
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+// Wait for the phase of the given parity to complete. A wait that lasts
+// ~10 s of SM clocks can only be a fault (a missed arrival or a short
+// TMA): it traps, so the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  long long start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    if (done) return;
+    if (start == 0) start = clock64();
+    else if (clock64() - start > 20000000000LL) __trap();
+  }
+}
+// One box of a 3-D tensor map (column, row, batch·head) into smem.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
 }
 
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+// wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units), swizzle layout.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo, uint32_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
 }
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma (it sees the registers as written at issue).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-template <typename T, int D>
-constexpr size_t smem_bytes_mma() {
-  return (size_t)5 * FA_BQ * (D + 8) * sizeof(T);
+template <typename T> __device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <> __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 h = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(FM_THREADS)
-flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int S, int Tk,
-                     int causal, float scale) {
-  constexpr int LD = D + 8;            // padded smem row (elements)
-  constexpr int KS = D / 16;           // k-steps of Q·K^T
-  constexpr int NO = D / 8;            // n-tiles of the output
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sQ = reinterpret_cast<T*>(smem_raw);
-  T* sK = sQ + FA_BQ * LD;             // two stages
-  T* sV = sK + 2 * FA_BKV * LD;        // two stages
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// 2^x on the SFU, denormal results flushed to 0 (the softmax's P terms
+// below 2^-126 vanish after the bf16/fp16 rounding anyway)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(WG_CONSUMER_WARPS * 32) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(WG_CONSUMER_WARPS * 32) : "memory");
+}
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * FA_BQ;
-  const T* qb = q + (long long)bh * S * D;
-  const T* kb = k + (long long)bh * Tk * D;
-  const T* vb = v + (long long)bh * Tk * D;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int off = Tk - S;              // bottom-right causal alignment
+// A persistent CTA's work tile w: batch·head and first query row, and
+// its number of K/V tiles. Causal work runs heaviest first: every
+// batch·head of the last query tile, then of the one before, and so on.
+struct WorkTile {
+  int bh, q0, ntiles;
+};
+__device__ __forceinline__ WorkTile work_tile(int w, int bh_count, int nq, int S,
+                                              int Tk, int causal, int bkv) {
+  const int rank = w / bh_count;
+  WorkTile t;
+  t.bh = w - rank * bh_count;
+  t.q0 = (causal ? nq - 1 - rank : rank) * WG_BQ;
   int kv_end = Tk;
-  if (causal) kv_end = min(Tk, min(q0 + FA_BQ, S) + off);
-  const int ntiles = (kv_end + FA_BKV - 1) / FA_BKV;
+  if (causal) kv_end = min(Tk, min(t.q0 + WG_BQ, S) + Tk - S);
+  t.ntiles = (kv_end + bkv - 1) / bkv;
+  return t;
+}
 
-  load_tile<T, D, FM_THREADS>(sQ, qb, q0, S);
-  load_tile<T, D, FM_THREADS>(sK, kb, 0, Tk);
-  load_tile<T, D, FM_THREADS>(sV, vb, 0, Tk);
-  cp_async_commit();
+template <typename T, int W>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, T* __restrict__ o,
+                       int bh_count, int S, int Tk, int D, int causal,
+                       float scale_log2) {
+  using C = WgCfg<W>;
+  constexpr int BKV = C::BKV;
+  constexpr int NS = BKV / 2;            // score accumulators per thread
+  constexpr int NO = W / 2;              // output accumulators per thread
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  // tiles need 1 KB alignment (the swizzle pattern repeats every 1 KB)
+  unsigned char* smem = wg_smem + ((1024 - (smem_u32(wg_smem) & 1023)) & 1023);
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sK = sQ + WG_BQ * W;                // WG_STAGES tiles of BKV x W
+  T* sV = sK + WG_STAGES * BKV * W;
+  // K and V ring stages each have their own full and empty barriers: a K
+  // stage frees when its S = Q K^T is done, a V stage a tile later; Q
+  // frees when a work tile's last S = Q K^T is done
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(smem + C::TILE_BYTES);
+  uint64_t* empty_k = full_k + WG_STAGES;
+  uint64_t* full_v = empty_k + WG_STAGES;
+  uint64_t* empty_v = full_v + WG_STAGES;
+  uint64_t* full_q = empty_v + WG_STAGES;
+  uint64_t* empty_q = full_q + 1;
 
-  // rows of this thread: r0 = warp*16 + lane/4 and r0 + 8
-  const int qp0 = q0 + warp * 16 + (lane >> 2);
-  const int qp1 = qp0 + 8;
-  const int cq = (lane & 3) * 2;       // first of the two columns it holds
-  float m0 = FA_NEG, m1 = FA_NEG, l0 = 0.f, l1 = 0.f;
-  float acc[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  uint32_t qa[KS][4];
+  const int nq = (S + WG_BQ - 1) / WG_BQ;
+  const int total = bh_count * nq;
+  const int wg = threadIdx.x / 128;
 
-  for (int it = 0; it < ntiles; ++it) {
-    const int st = it & 1;
-    if (it + 1 < ntiles) {
-      load_tile<T, D, FM_THREADS>(sK + (st ^ 1) * FA_BKV * LD, kb,
-                                    (it + 1) * FA_BKV, Tk);
-      load_tile<T, D, FM_THREADS>(sV + (st ^ 1) * FA_BKV * LD, vb,
-                                    (it + 1) * FA_BKV, Tk);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < WG_STAGES; ++i) {
+      mbar_init(&full_k[i], 1);
+      mbar_init(&empty_k[i], WG_CONSUMER_WARPS);
+      mbar_init(&full_v[i], 1);
+      mbar_init(&empty_v[i], WG_CONSUMER_WARPS);
     }
-    __syncthreads();
-    if (it == 0) {
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
-        ldsm_x4(qa[ks], sQ + (warp * 16 + (lane & 15)) * LD + ks * 16 + (lane >> 4) * 8);
-    }
-    const T* cK = sK + st * FA_BKV * LD;
-    const T* cV = sV + st * FA_BKV * LD;
-
-    // S = Q K^T: 8 n-tiles of 8 keys
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t b[4];
-        const int m = lane >> 3;
-        ldsm_x4(b, cK + (np * 16 + (m >> 1) * 8 + (lane & 7)) * LD + ks * 16 + (m & 1) * 8);
-        Mma<T>::run(s[2 * np], qa[ks], b[0], b[1]);
-        Mma<T>::run(s[2 * np + 1], qa[ks], b[2], b[3]);
-      }
-    }
-
-    // online softmax of rows qp0 (s[j][0..1]) and qp1 (s[j][2..3])
-    const int kv0 = it * FA_BKV;
-    float mx0 = FA_NEG, mx1 = FA_NEG;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int kp = kv0 + j * 8 + cq + e;
-        const bool in = kp < Tk;
-        const bool ok0 = in && (!causal || kp <= qp0 + off);
-        const bool ok1 = in && (!causal || kp <= qp1 + off);
-        s[j][e] = ok0 ? s[j][e] * scale : FA_NEG;
-        s[j][2 + e] = ok1 ? s[j][2 + e] * scale : FA_NEG;
-        mx0 = fmaxf(mx0, s[j][e]);
-        mx1 = fmaxf(mx1, s[j][2 + e]);
-      }
-    }
-    mx0 = quad_max(mx0);
-    mx1 = quad_max(mx1);
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
-    float rs0 = 0.f, rs1 = 0.f;
-    uint32_t pa[4][4];                 // P as the A fragments of 4 k-steps
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float p[4];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        p[e] = s[j][e] > 0.5f * FA_NEG ? expf(s[j][e] - mn0) : 0.f;
-        p[2 + e] = s[j][2 + e] > 0.5f * FA_NEG ? expf(s[j][2 + e] - mn1) : 0.f;
-      }
-      rs0 += p[0] + p[1];
-      rs1 += p[2] + p[3];
-      pa[j >> 1][(j & 1) * 2] = Mma<T>::pack(p[0], p[1]);
-      pa[j >> 1][(j & 1) * 2 + 1] = Mma<T>::pack(p[2], p[3]);
-    }
-    l0 = l0 * al0 + quad_sum(rs0);
-    l1 = l1 * al1 + quad_sum(rs1);
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int j = 0; j < NO; ++j) {
-      acc[j][0] *= al0; acc[j][1] *= al0;
-      acc[j][2] *= al1; acc[j][3] *= al1;
-    }
-
-    // acc += P V: 4 k-steps of 16 keys, NO n-tiles of 8 columns
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int np = 0; np < NO / 2; ++np) {
-        uint32_t b[4];
-        const int m = lane >> 3;
-        ldsm_x4_t(b, cV + (kk * 16 + (m & 1) * 8 + (lane & 7)) * LD + np * 16 + (m >> 1) * 8);
-        Mma<T>::run(acc[2 * np], pa[kk], b[0], b[1]);
-        Mma<T>::run(acc[2 * np + 1], pa[kk], b[2], b[3]);
-      }
-    }
-    __syncthreads();   // the next iteration refills this stage
+    mbar_init(full_q, 1);
+    mbar_init(empty_q, WG_CONSUMER_WARPS);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-#pragma unroll
-  for (int j = 0; j < NO; ++j) {
-    const int col = j * 8 + cq;
-    if (qp0 < S) {
-      T* p0 = o + ((long long)bh * S + qp0) * D + col;
-      p0[0] = from_f<T>(acc[j][0] / d0);
-      p0[1] = from_f<T>(acc[j][1] / d0);
+  if (wg == 2) {
+    // ---- producer: Q of each work tile, then its K and V tiles ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      int kv = 0;                        // K/V tiles loaded so far: the ring position
+      int n = 0;
+      for (int w = blockIdx.x; w < total; w += gridDim.x, ++n) {
+        const WorkTile tile = work_tile(w, bh_count, nq, S, Tk, causal, BKV);
+        if (n > 0) mbar_wait(empty_q, (n - 1) & 1);
+        mbar_expect_tx(full_q, C::Q_BYTES);
+        for (int cb = 0; cb < C::NCB; ++cb)
+          tma_load(sQ + cb * WG_BQ * C::CB, &tq, full_q, cb * C::CB, tile.q0, tile.bh);
+        for (int it = 0; it < tile.ntiles; ++it, ++kv) {
+          const int st = kv % WG_STAGES;
+          const uint32_t free_parity = ((kv / WG_STAGES) & 1) ^ 1;
+          T* k_st = sK + st * BKV * W;
+          T* v_st = sV + st * BKV * W;
+          mbar_wait(&empty_k[st], free_parity);
+          mbar_expect_tx(&full_k[st], C::KV_BYTES);
+          for (int cb = 0; cb < C::NCB; ++cb)
+            tma_load(k_st + cb * BKV * C::CB, &tk, &full_k[st], cb * C::CB, it * BKV,
+                     tile.bh);
+          mbar_wait(&empty_v[st], free_parity);
+          mbar_expect_tx(&full_v[st], C::KV_BYTES);
+          for (int cb = 0; cb < C::NCB; ++cb)
+            tma_load(v_st + cb * BKV * C::CB, &tv, &full_v[st], cb * C::CB, it * BKV,
+                     tile.bh);
+        }
+      }
     }
-    if (qp1 < S) {
-      T* p1 = o + ((long long)bh * S + qp1) * D + col;
-      p1[0] = from_f<T>(acc[j][2] / d1);
-      p1[1] = from_f<T>(acc[j][3] / d1);
+  } else {
+    // ---- consumers: warpgroup wg owns query rows q0 + 64wg .. +63 ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int r0 = 64 * wg + 16 * warp + lane / 4;   // rows r0 and r0 + 8 of the tile
+    const int cq = (lane % 4) * 2;                   // first of the two columns it holds
+    const int off = Tk - S;                          // bottom-right causal alignment
+    int qp0 = 0, qp1 = 0, wg_first = 0;              // of the current work tile
+
+    float o_acc[NO];
+    float s[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) s[i] = 0.f;
+    uint32_t pa[BKV / 16][4];                        // P of the previous tile, A fragments
+    float m0, m1, l0, l1;
+    const uint32_t q_addr = smem_u32(sQ) + 64 * wg * C::ROWB;
+    const uint32_t k_base = smem_u32(sK), v_base = smem_u32(sV);
+    constexpr uint32_t SBO = 8 * C::ROWB;            // next 8 rows
+
+    // S = Q K^T over W / 16 k-steps, both from shared memory
+    auto gemm_s = [&](int st) {
+      const uint32_t k_addr = k_base + st * C::KV_BYTES;
+#pragma unroll
+      for (int ks = 0; ks < W / 16; ++ks) {
+        const int cb = ks / (C::CB / 16), kin = ks % (C::CB / 16);
+        const uint64_t da = wg_desc(q_addr + cb * WG_BQ * C::ROWB + kin * 32, 16,
+                                    SBO, C::LAYOUT);
+        const uint64_t db = wg_desc(k_addr + cb * BKV * C::ROWB + kin * 32, 16,
+                                    SBO, C::LAYOUT);
+        Wgmma<T, BKV>::ss(s, da, db, ks > 0);
+      }
+    };
+    // O += P V: P from registers, V MN-major (column blocks LBO apart,
+    // 8-key groups SBO apart)
+    auto gemm_o = [&](int st) {
+      const uint32_t v_addr = v_base + st * C::KV_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {
+        const uint64_t db = wg_desc(v_addr + kk * 16 * C::ROWB, BKV * C::ROWB, SBO,
+                                    C::LAYOUT);
+        Wgmma<T, W>::rs(o_acc, pa[kk], db, 1);
+      }
+    };
+    // The online softmax of K/V tile it on s: masks the tiles that cross
+    // the diagonal or the ragged end of T, updates m and this thread's
+    // share of l (the quad's sum is taken at the end), leaves 2^(S·scale·
+    // log2 e - m) in s and returns the rescale factors of the two rows.
+    auto softmax = [&](int it, float& al0, float& al1) {
+      const int kv0 = it * BKV;
+      if (kv0 + BKV > Tk || (causal && kv0 + BKV - 1 > wg_first + off)) {
+#pragma unroll
+        for (int i = 0; i < NS; ++i) {
+          const int kp = kv0 + (i / 4) * 8 + cq + (i & 1);
+          const int qp = (i & 2) ? qp1 : qp0;
+          if (kp >= Tk || (causal && kp > qp + off)) s[i] = -INFINITY;
+        }
+      }
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < NS; i += 4) {
+        mx0 = fmaxf(mx0, fmaxf(s[i], s[i + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[i + 2], s[i + 3]));
+      }
+      const float mn0 = fmaxf(m0, quad_max(mx0) * scale_log2);
+      const float mn1 = fmaxf(m1, quad_max(mx1) * scale_log2);
+      const float mb0 = mn0 == -INFINITY ? 0.f : mn0;  // a row with no key yet
+      const float mb1 = mn1 == -INFINITY ? 0.f : mn1;
+      al0 = ex2(m0 - mb0);
+      al1 = ex2(m1 - mb1);
+      m0 = mn0;
+      m1 = mn1;
+      float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < NS; i += 4) {
+        s[i] = ex2(fmaf(s[i], scale_log2, -mb0));
+        s[i + 1] = ex2(fmaf(s[i + 1], scale_log2, -mb0));
+        s[i + 2] = ex2(fmaf(s[i + 2], scale_log2, -mb1));
+        s[i + 3] = ex2(fmaf(s[i + 3], scale_log2, -mb1));
+        rs0 += s[i] + s[i + 1];
+        rs1 += s[i + 2] + s[i + 3];
+      }
+      l0 = l0 * al0 + rs0;
+      l1 = l1 * al1 + rs1;
+    };
+    // P rounded to T as the A fragments of BKV / 16 k-steps
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack2<T>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+    };
+
+    // Ping-pong: the two warpgroups take turns to issue their products
+    // (named barrier 1 + wg is this warpgroup's turn), so one's softmax
+    // runs while the other's products keep the tensor cores busy. Both
+    // issue ntiles + 1 times per work tile (every work tile has a K/V
+    // tile when T > 0); warpgroup 1 hands the first turn over and keeps
+    // its last.
+    const auto turn_begin = [&]() { named_sync(1 + wg); };
+    const auto turn_end = [&](bool last) {
+      if (!(last && wg == 1)) named_arrive(2 - wg);
+    };
+    // a ring stage (or Q) is free once each consumer warp is done with it
+    const auto release = [&](uint64_t* bar) {
+      if (lane == 0) mbar_arrive(bar);
+    };
+
+    if (Tk > 0 && wg == 1) named_arrive(1);
+    int kv = 0;                          // K/V tiles consumed so far: the ring position
+    int n = 0;
+    for (int w = blockIdx.x; w < total; w += gridDim.x, ++n) {
+      const WorkTile tile = work_tile(w, bh_count, nq, S, Tk, causal, BKV);
+      const bool last_tile = w + (int)gridDim.x >= total;
+      qp0 = tile.q0 + r0;
+      qp1 = qp0 + 8;
+      wg_first = tile.q0 + 64 * wg;
+      m0 = m1 = -INFINITY;
+      l0 = l1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < NO; ++i) o_acc[i] = 0.f;
+
+      mbar_wait(full_q, n & 1);
+      if (tile.ntiles > 0) {
+        float al0, al1;
+        const int st0 = kv % WG_STAGES;
+        mbar_wait(&full_k[st0], (kv / WG_STAGES) & 1);
+        turn_begin();
+        fence_regs(s);
+        fence_regs(o_acc);
+        wg_fence();
+        gemm_s(st0);
+        wg_commit();
+        turn_end(false);
+        wg_wait<0>();
+        fence_regs(s);
+        release(&empty_k[st0]);
+        if (tile.ntiles == 1) release(empty_q);
+        softmax(0, al0, al1);
+        pack_p();
+        // K/V tile it's S = Q K^T runs on the tensor cores beside tile
+        // it-1's O += P V, and tile it's softmax beside the rest of that P V
+        for (int it = 1; it < tile.ntiles; ++it) {
+          const int g = kv + it;
+          const int st = g % WG_STAGES, pst = (g - 1) % WG_STAGES;
+          mbar_wait(&full_k[st], (g / WG_STAGES) & 1);
+          mbar_wait(&full_v[pst], ((g - 1) / WG_STAGES) & 1);
+          turn_begin();
+          fence_regs(s);
+          fence_regs(o_acc);
+          wg_fence();
+          gemm_s(st);
+          wg_commit();
+          gemm_o(pst);
+          wg_commit();
+          turn_end(false);
+          wg_wait<1>();                // S of tile it
+          fence_regs(s);
+          release(&empty_k[st]);
+          if (it == tile.ntiles - 1) release(empty_q);
+          softmax(it, al0, al1);
+          wg_wait<0>();                // P V of tile it - 1
+          fence_regs(o_acc);
+          release(&empty_v[pst]);
+#pragma unroll
+          for (int i = 0; i < NO; i += 4) {
+            o_acc[i] *= al0;
+            o_acc[i + 1] *= al0;
+            o_acc[i + 2] *= al1;
+            o_acc[i + 3] *= al1;
+          }
+          pack_p();
+        }
+        const int g = kv + tile.ntiles - 1;
+        const int lst = g % WG_STAGES;
+        mbar_wait(&full_v[lst], (g / WG_STAGES) & 1);
+        turn_begin();
+        fence_regs(o_acc);
+        wg_fence();
+        gemm_o(lst);
+        wg_commit();
+        turn_end(last_tile);
+        wg_wait<0>();
+        fence_regs(o_acc);
+        release(&empty_v[lst]);
+        kv += tile.ntiles;
+      } else {
+        release(empty_q);
+      }
+
+      const float d0 = 1.f / fmaxf(quad_sum(l0), 1e-30f);
+      const float d1 = 1.f / fmaxf(quad_sum(l1), 1e-30f);
+      T* o0 = o + ((long long)tile.bh * S + qp0) * D;
+      T* o1 = o + ((long long)tile.bh * S + qp1) * D;
+      const bool pairs = (D % 2) == 0;
+#pragma unroll
+      for (int j = 0; j < W / 8; ++j) {
+        const int col = j * 8 + cq;
+        if (col >= D) continue;
+        const float a = o_acc[4 * j] * d0, b = o_acc[4 * j + 1] * d0;
+        const float c = o_acc[4 * j + 2] * d1, e = o_acc[4 * j + 3] * d1;
+        if (pairs) {
+          if (qp0 < S) *reinterpret_cast<uint32_t*>(o0 + col) = pack2<T>(a, b);
+          if (qp1 < S) *reinterpret_cast<uint32_t*>(o1 + col) = pack2<T>(c, e);
+        } else {
+          if (qp0 < S) {
+            o0[col] = from_f<T>(a);
+            if (col + 1 < D) o0[col + 1] = from_f<T>(b);
+          }
+          if (qp1 < S) {
+            o1[col] = from_f<T>(c);
+            if (col + 1 < D) o1[col + 1] = from_f<T>(e);
+          }
+        }
+      }
     }
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int s, int t, int causal, float scale, cudaStream_t st) {
-  const dim3 grid((s + FA_BQ - 1) / FA_BQ, bh);
-  if constexpr (std::is_same<T, float>::value) {
-    const size_t smem = smem_bytes<T, D>();
-    cudaError_t err = allow_smem(flash_fwd_kernel<T, D>, smem);
-    if (err != cudaSuccess) return (int)err;
-    flash_fwd_kernel<T, D><<<grid, FA_THREADS, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), s, t, causal, scale);
-  } else {
-    const size_t smem = smem_bytes_mma<T, D>();
-    cudaError_t err = allow_smem(flash_fwd_mma_kernel<T, D>, smem);
-    if (err != cudaSuccess) return (int)err;
-    flash_fwd_mma_kernel<T, D><<<grid, FM_THREADS, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), s, t, causal, scale);
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime, so the library does not
+// link libcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
+                                                     12000, cudaEnableDefault, &res);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &res);
+#endif
+    if (e != cudaSuccess || res != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
   }
+  return fn;
+}
+
+// (bh, rows, ld) 16-bit tensor as a 3-D map with boxes of (cb, box_rows, 1),
+// rows and columns past the tensor read as zero.
+bool make_map(CUtensorMap* map, const void* ptr, bool bf16, int bh, int rows,
+              int ld, int cb, int box_rows) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)ld, (cuuint64_t)rows, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)ld * 2 * rows};
+  const cuuint32_t box[3] = {(cuuint32_t)cb, (cuuint32_t)box_rows, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult r = enc(
+      map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+      3, const_cast<void*>(ptr), dims, strides, box, estr,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      cb == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS;
+}
+
+template <typename T, int W>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int bh,
+                 int s, int t, int d, int ld, int causal, float scale,
+                 cudaStream_t st) {
+  using C = WgCfg<W>;
+  constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, q, bf16, bh, s, ld, C::CB, WG_BQ) ||
+      !make_map(&mk, k, bf16, bh, t, ld, C::CB, C::BKV) ||
+      !make_map(&mv, v, bf16, bh, t, ld, C::CB, C::BKV))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(flash_fwd_wgmma_kernel<T, W>, C::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+          cudaSuccess)
+    return (int)err;
+  // persistent: one CTA an SM, each walking work tiles gridDim.x apart
+  const long long work = (long long)bh * ((s + WG_BQ - 1) / WG_BQ);
+  const int grid = (int)(work < sms ? work : sms);
+  flash_fwd_wgmma_kernel<T, W><<<grid, WG_THREADS, C::SMEM, st>>>(
+      mq, mk, mv, static_cast<T*>(o), bh, s, t, d, causal, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
+template <int W>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int bh,
+               int s, int t, int d, int ld, int causal, float scale,
+               cudaStream_t st) {
+  constexpr int NST = f32_stages<W>();
+  constexpr size_t smem = smem_bytes_f32<W, NST>();
+  cudaError_t err = allow_smem(flash_fwd_kernel<W, NST>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(bh, (s + FA_BQ - 1) / FA_BQ);
+  flash_fwd_kernel<W, NST><<<grid, FA_THREADS, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), s, t, d, ld, causal,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int W>
+int launch(const void* q, const void* k, const void* v, void* o, int bh, int s,
+           int t, int d, int ld, int causal, float scale, cudaStream_t st) {
+  if constexpr (std::is_same<T, float>::value)
+    return launch_f32<W>(q, k, v, o, bh, s, t, d, ld, causal, scale, st);
+  else
+    return launch_wgmma<T, W>(q, k, v, o, bh, s, t, d, ld, causal, scale, st);
+}
+
 template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, int bh,
-             int s, int t, int d, int causal, float scale, cudaStream_t st) {
-  switch (d) {
-    case 32: return launch<T, 32>(q, k, v, o, bh, s, t, causal, scale, st);
-    case 64: return launch<T, 64>(q, k, v, o, bh, s, t, causal, scale, st);
-    case 128: return launch<T, 128>(q, k, v, o, bh, s, t, causal, scale, st);
+int launch_w(const void* q, const void* k, const void* v, void* o, int bh, int s,
+             int t, int d, int ld, int width, int causal, float scale,
+             cudaStream_t st) {
+  switch (width) {
+    case 32: return launch<T, 32>(q, k, v, o, bh, s, t, d, ld, causal, scale, st);
+    case 64: return launch<T, 64>(q, k, v, o, bh, s, t, d, ld, causal, scale, st);
+    case 96: return launch<T, 96>(q, k, v, o, bh, s, t, d, ld, causal, scale, st);
+    case 128: return launch<T, 128>(q, k, v, o, bh, s, t, d, ld, causal, scale, st);
+    case 256: return launch<T, 256>(q, k, v, o, bh, s, t, d, ld, causal, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 fp32, 1 bf16, 2 fp16; q (bh, s, d), k/v (bh, t, d), contiguous
-// and 16-byte aligned; d in {32, 64, 128}.
+// dtype: 0 fp32, 1 bf16, 2 fp16. q (bh, s, ld), k/v (bh, t, ld),
+// contiguous and 16-byte aligned, with d <= ld <= width valid columns
+// (zero past d when ld > d); o (bh, s, d). width in {32, 64, 96, 128,
+// 256}; ld * element size a multiple of 16 bytes.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int dtype,
-                                      int bh, int s, int t, int d, int causal,
-                                      float scale, void* stream) {
+                                      int bh, int s, int t, int d, int ld,
+                                      int width, int causal, float scale,
+                                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch_d<__nv_bfloat16>(q, k, v, o, bh, s, t, d, causal, scale, st);
-  if (dtype == 2) return launch_d<__half>(q, k, v, o, bh, s, t, d, causal, scale, st);
-  return launch_d<float>(q, k, v, o, bh, s, t, d, causal, scale, st);
+  if (dtype == 1)
+    return launch_w<__nv_bfloat16>(q, k, v, o, bh, s, t, d, ld, width, causal, scale, st);
+  if (dtype == 2)
+    return launch_w<__half>(q, k, v, o, bh, s, t, d, ld, width, causal, scale, st);
+  return launch_w<float>(q, k, v, o, bh, s, t, d, ld, width, causal, scale, st);
 }

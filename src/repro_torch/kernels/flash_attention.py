@@ -1,13 +1,26 @@
-"""Flash attention forward (online softmax), causal or full.
+"""Flash attention forward (online softmax), causal or full, any head dim.
 
 Replaces the TPU kernel
 ``src/repro/kernels/flash_attention.py:flash_attention_pallas`` with the
-CUDA kernels of ``csrc/flash_attention.cu``: one block per (batch·head,
-64-query tile) loops over double-buffered K/V tiles of 64 keys in shared
-memory, keeping the fp32 running max, denominator and accumulator in
-registers. Bound by operations at the model's shapes: bf16/fp16 run both
-products on the tensor cores (``mma.sync``), fp32 as FMAs on the CUDA
-cores.
+CUDA kernels of ``csrc/flash_attention.cu``. Bound by operations at the
+model's shapes. bf16/fp16 run a warp-specialised Hopper kernel:
+persistent CTAs (one an SM) walk (batch·head, 128-query) work tiles,
+causal ones heaviest first; a producer warpgroup loads each tile's Q and
+its K/V tiles by TMA into 2-stage mbarrier rings, and two consumer
+warpgroups of 64 query rows form both products with ``wgmma`` (P fed
+from registers) and the softmax in registers (``ex2``), each overlapping
+a tile's softmax with the previous tile's P·V and taking turns with the
+other to issue. fp32 runs FMAs on the CUDA cores (the tensor cores would
+take it as TF32).
+
+Any head dim D <= 256 runs at a kernel width (``width_plan``): the least
+of ``KERNEL_WIDTHS`` >= D, with the columns past D zero. The kernel
+reads q, k and v in place when a row of D elements is a whole number of
+16-byte chunks (D % 8 == 0 in 16 bits, D % 4 == 0 in fp32; the TMA or
+cp.async zero-fills the rest of the width), and otherwise takes copies
+zero-padded to the width. The scale stays 1/sqrt(D) of the true D and
+only the first D output columns are written. D > 256 is refused on the
+card (no configuration has it); the CPU route takes any D.
 
 The semantics are those of the reference's oracle: scale 1/sqrt(D), the
 causal mask aligned bottom-right (query i sees keys j <= i + T − S), P
@@ -19,13 +32,27 @@ are masked in the kernel; the TPU wrapper pads them without a mask.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ref
 
-HEAD_DIMS = (32, 64, 128)
+KERNEL_WIDTHS = (32, 64, 96, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-MAX_GRID_Y = 65535
+MAX_GRID_Y = 65535             # the fp32 kernel's query tiles (64 rows) per head
 launches = 0
+
+
+def width_plan(d: int, dtype: torch.dtype) -> tuple[int, bool]:
+    """(kernel width, whether q, k and v are copied zero-padded to it) for
+    head dim ``d``: the width is the least of ``KERNEL_WIDTHS`` >= d; the
+    inputs are read in place when a row of d elements is a whole number of
+    16-byte chunks (what the TMA and cp.async take)."""
+    if d < 1 or d > KERNEL_WIDTHS[-1]:
+        raise ValueError(f"flash_attention: head dim {d} outside 1..."
+                         f"{KERNEL_WIDTHS[-1]} on the card")
+    width = next(w for w in KERNEL_WIDTHS if w >= d)
+    esize = torch.empty((), dtype=dtype).element_size()
+    return width, (d * esize) % 16 != 0
 
 
 def _validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -49,7 +76,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """q: (B, H, S, D); k, v: (B, H, T, D) -> (B, H, S, D) in q's dtype.
     A CPU tensor takes the plain version; a CUDA tensor the kernel, which
-    takes fp32/bf16/fp16 and D in ``HEAD_DIMS``."""
+    takes fp32/bf16/fp16 and any D up to 256."""
     _validate(q, k, v, causal)
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal)
@@ -60,31 +87,33 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     t = k.shape[2]
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash_attention: dtype {q.dtype} is not fp32/bf16/fp16")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
-    if b * h > MAX_GRID_Y:
-        raise ValueError(f"flash_attention: B*H={b * h} exceeds the grid")
-    q, k, v = (_aligned(x.contiguous()) for x in (q, k, v))
-    out = torch.empty_like(q)
+    width, padded = width_plan(d, q.dtype)
+    if q.dtype == torch.float32 and -(-s // 64) > MAX_GRID_Y:
+        raise ValueError(f"flash_attention: S={s} exceeds the fp32 kernel's grid")
+    if padded:
+        q, k, v = (F.pad(x, (0, width - d)).contiguous() for x in (q, k, v))
+    else:
+        q, k, v = (_aligned(x.contiguous()) for x in (q, k, v))
+    out = torch.empty((b, h, s, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    _launch(q, k, v, out, b * h, s, t, d, causal)
+    _launch(q, k, v, out, b * h, s, t, d, q.shape[3], width, causal)
     return out
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """x itself when its data is 16-byte aligned (cp.async), else a copy."""
+    """x itself when its data is 16-byte aligned (TMA, cp.async), else a copy."""
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def _launch(q, k, v, out, bh: int, s: int, t: int, d: int,
-            causal: bool) -> None:
+def _launch(q, k, v, out, bh: int, s: int, t: int, d: int, ld: int,
+            width: int, causal: bool) -> None:
     global launches
     from repro_torch.kernels import _build
 
     err = _build.lib().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], bh, s, t, d, int(causal), 1.0 / (d ** 0.5),
-        _build.stream_ptr(q.device))
+        _DTYPES[q.dtype], bh, s, t, d, ld, width, int(causal),
+        1.0 / (d ** 0.5), _build.stream_ptr(q.device))
     _build.check(err, "flash_attention")
     launches += 1

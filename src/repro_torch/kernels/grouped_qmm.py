@@ -2,26 +2,29 @@
 
 Replaces the TPU kernel
 ``src/repro/kernels/grouped_qmm.py:grouped_qmm_pallas`` with the CUDA
-kernels of ``csrc/grouped_qmm.cu``: every expert's projection of an MoE
-layer in one call instead of E per-expert ``qmm`` calls. It is ``qmm``
-with a segment dimension — the same dot and fold bodies
-(``csrc/qmm_core.cuh``), so segment s's valid rows equal the ``qmm``
-kernel on ``expert_slice(w, expert_ids[s])`` bit for bit. Bound by the
-packed bytes of the experts that have rows; a block whose rows all lie
-past its segment's count returns before reading a weight byte. The
-kernel reads ``counts`` and ``expert_ids`` on the device; nothing here
-reads them on the host, so a decode step keeps no sync.
+kernel of ``csrc/grouped_qmm.cu``: every expert's projection of an MoE
+layer in one launch instead of E per-expert ``qmm`` calls. One CTA per
+(128 columns, tile of up to 64 rows, segment) walks the scale groups of
+its expert in order through a cp.async ring, forms each group's exact
+int32 dot on the tensor cores (``mma.sync`` s8, the tensor-core group dot
+of ``csrc/qmm_core.cuh``) and folds it in registers with ``qmm``'s
+arithmetic, so segment s's valid rows equal the ``qmm`` kernel on
+``expert_slice(w, expert_ids[s])`` bit for bit. Bound by the packed bytes
+of the experts that have rows, read once per 64 rows; a CTA whose rows
+all lie past its segment's count returns before reading a weight byte.
+The kernel reads ``counts`` and ``expert_ids`` on the device; nothing
+here reads them on the host, so a decode step keeps no sync.
 
-The TPU kernel's ``MAX_GROUP = 4096`` VMEM guard is replaced by the
-shared-memory check of ``qmm``; its validation (``_validate_grouped``)
-is ported below.
+The TPU kernel's ``MAX_GROUP = 4096`` VMEM guard is dropped: a group is
+staged in chunks of 128 k values, so any group size runs. Its validation
+(``_validate_grouped``) is ported below.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.qmm import MAX_SMEM, _MT, smem_bytes, validate_group
+from repro_torch.kernels.qmm import validate_group
 from repro_torch.qtensor import packed_size
 
 MAX_GRID_Z = 65535
@@ -63,7 +66,8 @@ def grouped_qmm(x_q: torch.Tensor, w, x_scale: torch.Tensor,
     fp32; counts, expert_ids: (S,) int (ids default to ``arange(S)``).
     Returns (S, C, N) fp32 with rows >= counts[s] exactly 0.0, and with
     ``return_dots`` also the (S, G, C, N) int64 group dots (rows past a
-    segment's count are unspecified on the card)."""
+    segment's count are unspecified on the card). On the card the default
+    call is one CUDA launch and allocates only its output."""
     groups = _validate("grouped_qmm", x_q, w, x_scale, counts, expert_ids)
     if x_q.device.type == "cpu":
         y = ref.grouped_qmm(x_q, w, x_scale, counts, expert_ids)
@@ -76,12 +80,8 @@ def grouped_qmm(x_q: torch.Tensor, w, x_scale: torch.Tensor,
         raise ValueError(f"grouped_qmm: dtypes {x_q.dtype} x {w.data.dtype}")
     e, k, n = w.shape
     s, c = x_q.shape[0], x_q.shape[1]
-    if smem_bytes(k, groups) > MAX_SMEM:
-        raise ValueError(f"grouped_qmm: K={k} with {groups} groups needs "
-                         f"{smem_bytes(k, groups)} B of shared memory")
-    if s * -(-c // _MT) > MAX_GRID_Z:
-        raise ValueError(f"grouped_qmm: {s} segments of {c} rows exceed the "
-                         "launch grid")
+    if s > MAX_GRID_Z:
+        raise ValueError(f"grouped_qmm: {s} segments exceed the launch grid")
     dev = x_q.device
     ids = (torch.arange(s, dtype=torch.int32, device=dev) if expert_ids is None
            else expert_ids.to(device=dev, dtype=torch.int32).contiguous())
@@ -91,7 +91,8 @@ def grouped_qmm(x_q: torch.Tensor, w, x_scale: torch.Tensor,
     wd = w.data.contiguous()
     ws = w.scale.to(torch.float32).contiguous()
     out = torch.empty((s, c, n), dtype=torch.float32, device=dev)
-    dots = torch.empty((s, groups, c, n), dtype=torch.int32, device=dev)
+    dots = (torch.empty((s, groups, c, n), dtype=torch.int32, device=dev)
+            if return_dots else None)
     if s and c:
         _launch(x_q, xs, wd, ws, cnt, ids, out, dots, w.bits, s, c, k, n,
                 groups, e, packed_size(k, w.bits) * n)
@@ -105,7 +106,8 @@ def _launch(x_q, xs, wd, ws, cnt, ids, out, dots, bits, s, c, k, n, groups,
 
     err = _build.lib().grouped_qmm_launch(
         x_q.data_ptr(), xs.data_ptr(), wd.data_ptr(), ws.data_ptr(),
-        cnt.data_ptr(), ids.data_ptr(), out.data_ptr(), dots.data_ptr(),
+        cnt.data_ptr(), ids.data_ptr(), out.data_ptr(),
+        0 if dots is None else dots.data_ptr(),
         bits, s, c, k, n, groups, experts, expert_bytes,
         _build.stream_ptr(x_q.device))
     _build.check(err, "grouped_qmm")

@@ -3,16 +3,24 @@ version) against the reference on the CPU: the JAX oracle in fp32 on
 causal S == T, full S != T, causal S < T (the mask aligned bottom-right)
 and ragged T; the Pallas kernel in interpret mode at the reference's own
 kernel-test shapes and tolerance; causal S > T refused; and the model's
-``chunked_attention`` on the same tensors. Inputs come from numpy with
+``chunked_attention`` on the same tensors. Then the head dims the card's
+kernel takes through its width plan (any D up to 256): the port at the
+configurations' D = 12, 16, 96 and 112 against the oracle and the Pallas
+kernel, the plan itself for every D and every configuration, and the
+zero-padding arithmetic the card relies on. Inputs come from numpy with
 a seed."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
+from repro import configs as jconfigs
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_pallas
-from repro_torch.kernels import ops
+from repro_torch import configs as tconfigs
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import KERNEL_WIDTHS, width_plan
 from repro_torch.models.attention import chunked_attention
 
 
@@ -101,3 +109,86 @@ def test_flash_equals_chunked_attention(dtype):
     np.testing.assert_allclose(got.float().numpy(),
                                want.transpose(1, 2).float().numpy(),
                                rtol=0, atol=tol)
+
+
+# (S, T, causal): ragged causal S == T, ragged causal S < T (the mask
+# aligned bottom-right), ragged full S != T
+HEAD_DIM_SHAPES = [(77, 77, True), (30, 77, True), (50, 93, False)]
+
+
+@pytest.mark.parametrize("d", (12, 16, 96, 112))
+@pytest.mark.parametrize("s,t,causal", HEAD_DIM_SHAPES)
+def test_any_head_dim_matches_jax_oracle_and_pallas(d, s, t, causal):
+    """The configurations' head dims (smoke 12 and 16, phi3's 96,
+    zamba2's 112) against the JAX oracle within 2e-6 (fp32), and against
+    ``flash_attention_pallas`` in interpret mode within its 2e-3 where the
+    two agree on the mask: its default blocks span S and T here (no
+    unmasked padding), and it aligns a causal mask top-left, which is
+    the oracle's mask only at S == T."""
+    q, k, v = _qkv(d * 1000 + s + t, 2, 3, s, t, d)
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=causal).numpy()
+    oracle = np.asarray(jref.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                             jnp.asarray(v), causal=causal))
+    assert got.shape == (2, 3, s, d) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, oracle, rtol=0, atol=2e-6)
+    if causal and s != t:
+        return
+    pallas = np.asarray(flash_attention_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        interpret=True))
+    np.testing.assert_allclose(got, pallas, rtol=2e-3, atol=2e-3)
+
+
+def _config_head_dims():
+    dims = {}
+    for arch in tconfigs.ARCH_IDS:
+        for cfg in (tconfigs.get_config(arch), tconfigs.smoke_config(arch)):
+            dims[f"port {cfg.name}"] = cfg.head_dim
+    for arch in jconfigs.ARCH_IDS:
+        for cfg in (jconfigs.get_config(arch), jconfigs.smoke_config(arch)):
+            if cfg.head_dim:
+                dims[f"reference {cfg.name}"] = cfg.head_dim
+    return dims
+
+
+def test_width_plan_covers_every_head_dim():
+    """The card's width plan as a pure function: every D from 1 to 256,
+    in every dtype, runs at the least kernel width >= D, read in place
+    exactly when a row is a whole number of 16-byte chunks; every head dim
+    of every configuration (the port's and the reference's) has a width,
+    phi3's 96 its own; past 256 the card refuses."""
+    for d in range(1, 257):
+        for dtype, esize in ((torch.float32, 4), (torch.bfloat16, 2),
+                             (torch.float16, 2)):
+            width, padded = width_plan(d, dtype)
+            assert width == min(w for w in KERNEL_WIDTHS if w >= d)
+            assert padded == ((d * esize) % 16 != 0)
+    dims = _config_head_dims()
+    assert {12, 16, 64, 96, 112, 128} <= set(dims.values())
+    for name, d in dims.items():
+        assert width_plan(d, torch.bfloat16)[0] >= d, name
+    assert width_plan(96, torch.bfloat16) == (96, False)
+    assert width_plan(112, torch.bfloat16) == (128, False)
+    assert width_plan(12, torch.bfloat16) == (32, True)
+    for d in (0, 257, 512):
+        with pytest.raises(ValueError, match="head dim"):
+            width_plan(d, torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", (12, 16, 96, 112, 200))
+@pytest.mark.parametrize("causal", (True, False))
+def test_zero_padding_to_the_width_keeps_the_first_d_columns(d, causal):
+    """The arithmetic the card relies on: q, k and v zero-padded to the
+    planned width, with the scale kept at 1/sqrt(D) of the true D, give
+    the plain version's output on the first D columns within 2e-6 (fp32)
+    and exact zeros past them."""
+    s, t = (60, 60) if causal else (45, 70)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(d + s, 2, 3, s, t, d))
+    width, _ = width_plan(d, torch.bfloat16)
+    padded = [F.pad(x, (0, width - d)) for x in (q, k, v)]
+    got = ref.flash_attention(*padded, causal=causal, scale=1.0 / d ** 0.5)
+    want = ref.flash_attention(q, k, v, causal=causal)
+    assert got.shape[-1] == width and not got[..., d:].any()
+    np.testing.assert_allclose(got[..., :d].numpy(), want.numpy(), rtol=0,
+                               atol=2e-6)
