@@ -146,7 +146,33 @@ QMM_SHAPES = [("wq/wo", 2048, 2048), ("wk/wv", 2048, 1024),
               ("head", 2048, 92544)]
 
 
+def check_one_launch(kmod, xq, qt, xs) -> dict:
+    """One serving-path qmm call (no terms) is one launch of the qmm
+    kernel, no other kernel of the module, and one allocation: its (M, N)
+    output, no (G, M, N) scratch."""
+    torch.cuda.synchronize()
+    counts = lambda: (kmod.launches, kmod.launches_groups,  # noqa: E731
+                      kmod.launches_fold)
+    before, st0 = counts(), torch.cuda.memory_stats()
+    y = kmod.qmm(xq, qt, xs)
+    torch.cuda.synchronize()
+    after, st1 = counts(), torch.cuda.memory_stats()
+    allocs = st1["allocation.all.allocated"] - st0["allocation.all.allocated"]
+    nbytes = (st1["allocated_bytes.all.allocated"]
+              - st0["allocated_bytes.all.allocated"])
+    launched = tuple(a - b for a, b in zip(after, before))
+    if launched != (1, 0, 0) or allocs != 1 or nbytes < y.numel() * 4 \
+            or nbytes >= y.numel() * 4 + 512 * 1024:
+        raise AssertionError(f"qmm serving call: launches (qmm, qmm_groups, "
+                             f"fold) {launched}, {allocs} allocations of "
+                             f"{nbytes} B for a {tuple(y.shape)} fp32 output")
+    return {"launches": launched[0], "allocations": allocs,
+            "allocated_bytes": nbytes}
+
+
 def check_qmm(timer, gen, rows):
+    """qmm against its plain version (terms ``torch.equal``, the output
+    within 1e-5) and its one-launch contract."""
     from repro_torch.kernels import qmm as kmod, ref
     from repro_torch.qtensor import quantize
 
@@ -183,44 +209,58 @@ def check_qmm(timer, gen, rows):
                        "plain_ms": timer(lambda: ref.qmm(xq, qt, xs.reshape(-1, 1))),
                        "library_ms": timer(lambda: torch.matmul(xb, wd)),
                        "bound_ms": b_ms, "bound_by": b_by}
+                if (name, bits, m) == ("wq/wo", 8, 4):
+                    row["one_launch"] = check_one_launch(kmod, xq, qt, xs)
                 rows.append(row)
                 log(json.dumps(row))
             del qt, wd
         del w
 
 
-# (name, K, N, bits, M): wo and w_down of internlm2_1_8b at group 128, at
-# tp=1 and at their tp=2 shard-local K, at M=4 (a decode step of 4 slots)
-# and M=1 (every prefill token: the engine prefills one token a step, and
-# the only M that leaves the warp's 4-row tile partial); a ragged M=3; a
-# stress M=32 the path never gives (8 tiles in one launch); 6- and 3-bit
-# payloads; a ragged N (not a multiple of 4: the byte-wise load path)
-QMM_GROUPS_SHAPES = [("wo", 2048, 2048, 8, 4), ("w_down", 8192, 2048, 4, 4),
-                     ("wo tp=2 shard", 1024, 2048, 8, 4),
-                     ("w_down tp=2 shard", 4096, 2048, 4, 4),
-                     ("wo", 2048, 2048, 8, 1), ("w_down", 8192, 2048, 4, 1),
-                     ("wo tp=2 shard", 1024, 2048, 8, 1),
-                     ("w_down tp=2 shard", 4096, 2048, 4, 1),
-                     ("wo ragged M", 2048, 2048, 8, 3),
-                     ("wo stress M", 2048, 2048, 8, 32),
-                     ("wo", 2048, 2048, 6, 4), ("wo", 2048, 2048, 3, 4),
-                     ("ragged", 1024, 1027, 4, 4)]
+# (name, K, N, bits, M, group size): wo and w_down of internlm2_1_8b at
+# group 128, at tp=1 and at their tp=2 shard-local K, at M=4 (a decode
+# step of 4 slots) and M=1 (every prefill token: the engine prefills one
+# token a step); a ragged M=3; a stress M=32 the path never gives (4
+# tiles in one launch); 6- and 3-bit payloads; a ragged N (not a multiple
+# of 4: the byte-wise load path); zamba2_7b's w_down (G=112: more groups
+# than a CTA's pass holds, so the fold runs in two passes); and a group of
+# 120 (not a whole number of k32 steps: the kernel's checked path)
+QMM_GROUPS_SHAPES = [("wo", 2048, 2048, 8, 4, 128),
+                     ("w_down", 8192, 2048, 4, 4, 128),
+                     ("wo tp=2 shard", 1024, 2048, 8, 4, 128),
+                     ("w_down tp=2 shard", 4096, 2048, 4, 4, 128),
+                     ("wo", 2048, 2048, 8, 1, 128),
+                     ("w_down", 8192, 2048, 4, 1, 128),
+                     ("wo tp=2 shard", 1024, 2048, 8, 1, 128),
+                     ("w_down tp=2 shard", 4096, 2048, 4, 1, 128),
+                     ("wo ragged M", 2048, 2048, 8, 3, 128),
+                     ("wo stress M", 2048, 2048, 8, 32, 128),
+                     ("wo", 2048, 2048, 6, 4, 128),
+                     ("wo", 2048, 2048, 3, 4, 128),
+                     ("ragged", 1024, 1027, 4, 4, 128),
+                     ("zamba2 w_down", 14336, 3584, 8, 4, 128),
+                     ("zamba2 w_down", 14336, 3584, 8, 1, 128),
+                     ("zamba2 w_down", 14336, 3584, 4, 4, 128),
+                     ("zamba2 w_down", 14336, 3584, 4, 1, 128),
+                     ("group 120", 1920, 2048, 8, 4, 120),
+                     ("group 120", 1920, 2048, 8, 1, 120)]
 
 
 def check_qmm_groups(timer, gen, rows):
     """qmm_groups against its plain version with ``torch.equal`` (exact
     int32 dots, one rounding of the scale product) at the shapes the
-    tensor-parallel path gives it; shard invariance (the terms of a
+    tensor-parallel path gives it, and at a two-pass G and a group size
+    that is not a multiple of 32; shard invariance (the terms of a
     K-slice owning whole groups are that slice of the full terms); and
     qmm_groups_fold of the terms ``torch.equal`` to the qmm kernel and
     to the plain fold."""
     from repro_torch.kernels import qmm as kmod, ref
     from repro_torch.qtensor import quantize, shard
 
-    for name, k, n, bits, m in QMM_GROUPS_SHAPES:
+    for name, k, n, bits, m, gs in QMM_GROUPS_SHAPES:
         w = torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5
-        qt = quantize(w, bits, group_size=128)
-        groups = k // 128
+        qt = quantize(w, bits, group_size=gs)
+        groups = k // gs
         xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
                            dtype=torch.int32).to(torch.int8)
         xs = torch.rand(m, generator=gen, device="cuda") * 0.02 + 1e-3
@@ -245,8 +285,8 @@ def check_qmm_groups(timer, gen, rows):
         if not torch.equal(folded, ref.fold_group_terms(terms, xs.reshape(-1, 1))):
             raise AssertionError(f"{tag}: the fold differs from its plain version")
         xg = ((xq.float() * xs[:, None]).to(torch.bfloat16)
-              .reshape(m, groups, 128).transpose(0, 1).contiguous())
-        wg = qt.dequantize(torch.bfloat16).reshape(groups, 128, n)
+              .reshape(m, groups, gs).transpose(0, 1).contiguous())
+        wg = qt.dequantize(torch.bfloat16).reshape(groups, gs, n)
         nbytes = qt.data.numel() + qt.scale.numel() * 4 + m * k + groups * m * n * 4
         b_ms, b_by = bound_ms(nbytes, 2.0 * m * k * n, INT8_OPS)
         row = {"kernel": "qmm_groups", "shape": f"{name} {k}x{n} W{bits} G={groups} M={m}",
@@ -618,7 +658,8 @@ def check_fake_quant(timer, gen, rows):
 # configurations: phi3's prefill at D=96 (its own width), zamba2's D=112
 # (width 128, columns past D filled by the TMA), the smoke configs' D=12
 # (copied zero-padded to width 32) and D=16, D=256 (64-key tiles), fp32
-# at D=96 and at D=12
+# at D=96 and at D=12; then head dims past 256 (the wide CUDA-core
+# kernel, 128-column slabs of O) at D=320 and 512 in each dtype
 FLASH_CASES = [
     ("causal S=T=2048", 4, 16, 2048, 2048, 128, torch.bfloat16, True),
     ("causal S=T=4096", 4, 16, 4096, 4096, 128, torch.bfloat16, True),
@@ -636,6 +677,13 @@ FLASH_CASES = [
     ("full fp16 D=256 S=128 T=512", 2, 8, 128, 512, 256, torch.float16, False),
     ("causal fp32 D=96", 2, 8, 256, 256, 96, torch.float32, True),
     ("causal fp32 ragged D=12 S=T=77", 2, 4, 77, 77, 12, torch.float32, True),
+    ("causal S=T=256 D=320", 2, 8, 256, 256, 320, torch.bfloat16, True),
+    ("full fp16 D=320 S=100 T=300", 2, 4, 100, 300, 320, torch.float16, False),
+    ("causal fp32 D=320 S=T=256", 2, 4, 256, 256, 320, torch.float32, True),
+    ("causal ragged S=77 T=200 D=512", 2, 4, 77, 200, 512, torch.bfloat16,
+     True),
+    ("full fp16 D=512 S=128 T=512", 2, 8, 128, 512, 512, torch.float16, False),
+    ("causal fp32 D=512 S=T=256", 2, 4, 256, 256, 512, torch.float32, True),
 ]
 
 

@@ -33,8 +33,8 @@ _F = ctypes.c_float
 # are c_void_p, so ctypes never truncates them to 32 bits
 SIGNATURES = {
     "ef_sqnorm_launch": [_P, _I, _L, _L, _L, _P, _P, _P],
-    "qmm_launch": [_P, _P, _P, _P, _P, _P, _I, _L, _L, _L, _L, _P],
-    "qmm_groups_launch": [_P, _P, _P, _P, _I, _L, _L, _L, _L, _P],
+    "qmm_launch": [_P, _P, _P, _P, _P, _P, _I, _L, _L, _L, _L, _L, _I, _I,
+                   _I, _I, _P],
     "qmm_groups_fold_launch": [_P, _P, _P, _L, _L, _L, _P],
     "grouped_qmm_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
                            _L, _L, _L, _L, _L, _L, _L, _P],

@@ -58,6 +58,11 @@
 // K/V tiles of 64 keys, cp.async double-buffered (single-buffered at
 // W = 256, where two stages do not fit), rows padded by 16 bytes against
 // bank conflicts; the same widths, zero columns and causal schedule.
+//
+// D > 256, any of the three dtypes (flash_fwd_wide_kernel): CUDA-core
+// FMAs, one block per (batch·head, 64-query tile, 128-column slab of O);
+// S = Q K^T is formed over the full D in 64-column chunks staged as fp32,
+// so every slab recomputes it. No configuration has such a head dim.
 #include <cuda.h>
 #include <type_traits>
 
@@ -319,6 +324,172 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < DC; ++c)
       if (cg * DC + c < D) orow[cg * DC + c] = acc[i][c] / den;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Head dims above 256, any dtype: CUDA cores, no width to pad to. A block
+// owns (batch·head, 64-query tile, a slab of FW_SLAB output columns); it
+// forms S = Q K^T over the full D in chunks of FW_DK columns staged as
+// fp32 through shared memory, runs the same online softmax as the fp32
+// kernel (fp32 m, l and accumulator; P rounded to the input dtype before
+// P·V) and accumulates only its slab of O. Every slab recomputes S, so
+// the kernel does ceil(D / 128) times the score work; no configuration
+// has such a head dim and this kernel is what makes the card take one.
+// ---------------------------------------------------------------------------
+
+constexpr int FW_SLAB = 128;       // output columns per block
+constexpr int FW_DK = 64;          // head-dim columns per staged chunk of Q and K
+constexpr int FW_QLD = FW_DK + 4;  // padded smem rows (floats)
+constexpr int FW_VLD = FW_SLAB + 4;
+constexpr size_t FW_SMEM =
+    ((size_t)(FA_BQ + FA_BKV) * FW_QLD + (size_t)FA_BKV * FW_VLD +
+     (size_t)FA_BQ * FA_PLD) * sizeof(float);
+
+// rows [row0, row0 + 64) x columns [c0, c0 + NC) of a (nrows, D) matrix
+// into a (64, LD) fp32 smem tile, zero past nrows and D. A thread's loads
+// are all issued before its stores (a fixed trip count, unrolled).
+template <typename T, int NC, int LD>
+__device__ __forceinline__ void stage_f32(float* sm, const T* __restrict__ g,
+                                          int row0, int nrows, int c0, int D) {
+  constexpr int PER = 64 * NC / FA_THREADS;
+  float v[PER];
+#pragma unroll
+  for (int it = 0; it < PER; ++it) {
+    const int i = threadIdx.x + it * FA_THREADS, r = i / NC, cc = i % NC;
+    const bool valid = row0 + r < nrows && c0 + cc < D;
+    v[it] = valid ? to_f<T>(g[(long long)(row0 + r) * D + c0 + cc]) : 0.f;
+  }
+#pragma unroll
+  for (int it = 0; it < PER; ++it) {
+    const int i = threadIdx.x + it * FA_THREADS;
+    sm[(i / NC) * LD + i % NC] = v[it];
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(FA_THREADS)
+flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o, int S,
+                      int Tk, int D, int causal, float scale) {
+  constexpr int DC = FW_SLAB / 16;     // output columns per thread
+  extern __shared__ __align__(16) unsigned char fa_smem[];
+  float* sQ = reinterpret_cast<float*>(fa_smem);
+  float* sK = sQ + FA_BQ * FW_QLD;
+  float* sV = sK + FA_BKV * FW_QLD;
+  float* sP = sV + FA_BKV * FW_VLD;
+
+  const int bh = blockIdx.x;
+  const int q0 = query_tile(causal) * FA_BQ;
+  const int c0 = blockIdx.z * FW_SLAB;
+  const T* qb = q + (long long)bh * S * D;
+  const T* kb = k + (long long)bh * Tk * D;
+  const T* vb = v + (long long)bh * Tk * D;
+  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
+  const int off = Tk - S;              // bottom-right causal alignment
+  int kv_end = Tk;
+  if (causal) kv_end = min(Tk, min(q0 + FA_BQ, S) + off);
+  const int ntiles = (kv_end + FA_BKV - 1) / FA_BKV;
+
+  float m[4], l[4], acc[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = FA_NEG;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int kv0 = it * FA_BKV;
+    float sc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += FW_DK) {
+      __syncthreads();                 // the last chunk's (and tile's) readers are done
+      stage_f32<T, FW_DK, FW_QLD>(sQ, qb, q0, S, d0, D);
+      stage_f32<T, FW_DK, FW_QLD>(sK, kb, kv0, Tk, d0, D);
+      if (d0 == 0) stage_f32<T, FW_SLAB, FW_VLD>(sV, vb, kv0, Tk, c0, D);
+      __syncthreads();
+#pragma unroll 4
+      for (int dd = 0; dd < FW_DK; dd += 4) {
+        float qv[4][4], kv[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) load_vals<4>(sQ + (rg * 4 + i) * FW_QLD + dd, qv[i]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) load_vals<4>(sK + (cg + 16 * j) * FW_QLD + dd, kv[j]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sc[i][j] = fmaf(qv[i][e], kv[j][e], sc[i][j]);
+      }
+    }
+
+    // online softmax; P, rounded to the input dtype, into smem
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qp = q0 + rg * 4 + i;
+      bool ok[4];
+      float mx = FA_NEG;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kp = kv0 + cg + 16 * j;
+        ok[j] = kp < Tk && (!causal || kp <= qp + off);
+        sc[i][j] = ok[j] ? sc[i][j] * scale : FA_NEG;
+        mx = fmaxf(mx, sc[i][j]);
+      }
+      mx = half_warp_max(mx);
+      const float mn = fmaxf(m[i], mx);
+      const float alpha = expf(m[i] - mn);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = ok[j] ? expf(sc[i][j] - mn) : 0.f;
+        rs += p;
+        sP[(rg * 4 + i) * FA_PLD + cg + 16 * j] = to_f<T>(from_f<T>(p));
+      }
+      rs = half_warp_sum(rs);
+      l[i] = l[i] * alpha + rs;
+      m[i] = mn;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
+    }
+    __syncthreads();
+
+    // acc += P · V over the tile's 64 keys, in key order
+#pragma unroll 2
+    for (int j0 = 0; j0 < FA_BKV; j0 += 4) {
+      float4 pv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(sP + (rg * 4 + i) * FA_PLD + j0);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        float vv[DC];
+        load_vals<DC>(sV + (j0 + jj) * FW_VLD + cg * DC, vv);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = jj == 0 ? pv[i].x : jj == 1 ? pv[i].y : jj == 2 ? pv[i].z : pv[i].w;
+#pragma unroll
+          for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qp = q0 + rg * 4 + i;
+    if (qp >= S) continue;
+    const float den = fmaxf(l[i], 1e-30f);
+    T* orow = o + ((long long)bh * S + qp) * D + c0;
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+      if (c0 + cg * DC + c < D) orow[cg * DC + c] = from_f<T>(acc[i][c] / den);
   }
 }
 
@@ -845,10 +1016,25 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh, int s,
     return launch_wgmma<T, W>(q, k, v, o, bh, s, t, d, ld, causal, scale, st);
 }
 
+// D > 256: q, k, v contiguous (bh, rows, d); one block per (batch·head,
+// 64-query tile, 128-column slab of O)
+template <typename T>
+int launch_wide(const void* q, const void* k, const void* v, void* o, int bh,
+                int s, int t, int d, int causal, float scale, cudaStream_t st) {
+  cudaError_t err = allow_smem(flash_fwd_wide_kernel<T>, FW_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(bh, (s + FA_BQ - 1) / FA_BQ, (d + FW_SLAB - 1) / FW_SLAB);
+  flash_fwd_wide_kernel<T><<<grid, FA_THREADS, FW_SMEM, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), s, t, d, causal, scale);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_w(const void* q, const void* k, const void* v, void* o, int bh, int s,
              int t, int d, int ld, int width, int causal, float scale,
              cudaStream_t st) {
+  if (width > 256) return launch_wide<T>(q, k, v, o, bh, s, t, d, causal, scale, st);
   switch (width) {
     case 32: return launch<T, 32>(q, k, v, o, bh, s, t, d, ld, causal, scale, st);
     case 64: return launch<T, 64>(q, k, v, o, bh, s, t, d, ld, causal, scale, st);
@@ -864,7 +1050,8 @@ int launch_w(const void* q, const void* k, const void* v, void* o, int bh, int s
 // dtype: 0 fp32, 1 bf16, 2 fp16. q (bh, s, ld), k/v (bh, t, ld),
 // contiguous and 16-byte aligned, with d <= ld <= width valid columns
 // (zero past d when ld > d); o (bh, s, d). width in {32, 64, 96, 128,
-// 256}; ld * element size a multiple of 16 bytes.
+// 256}; ld * element size a multiple of 16 bytes. Or width = ld = d > 256:
+// the CUDA-core kernel for wide heads, in any of the three dtypes.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int dtype,
                                       int bh, int s, int t, int d, int ld,

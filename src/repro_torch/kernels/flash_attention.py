@@ -19,8 +19,10 @@ reads q, k and v in place when a row of D elements is a whole number of
 16-byte chunks (D % 8 == 0 in 16 bits, D % 4 == 0 in fp32; the TMA or
 cp.async zero-fills the rest of the width), and otherwise takes copies
 zero-padded to the width. The scale stays 1/sqrt(D) of the true D and
-only the first D output columns are written. D > 256 is refused on the
-card (no configuration has it); the CPU route takes any D.
+only the first D output columns are written. D > 256 (no configuration
+has it) runs, in every dtype, a CUDA-core kernel at the true D: one block
+per 128-column slab of the output, each forming the scores over the
+full D in staged chunks.
 
 The semantics are those of the reference's oracle: scale 1/sqrt(D), the
 causal mask aligned bottom-right (query i sees keys j <= i + T − S), P
@@ -38,18 +40,20 @@ from repro_torch.kernels import ref
 
 KERNEL_WIDTHS = (32, 64, 96, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-MAX_GRID_Y = 65535             # the fp32 kernel's query tiles (64 rows) per head
+MAX_GRID_Y = 65535             # the CUDA-core kernels' query tiles (64 rows) per head
 launches = 0
 
 
 def width_plan(d: int, dtype: torch.dtype) -> tuple[int, bool]:
     """(kernel width, whether q, k and v are copied zero-padded to it) for
-    head dim ``d``: the width is the least of ``KERNEL_WIDTHS`` >= d; the
-    inputs are read in place when a row of d elements is a whole number of
-    16-byte chunks (what the TMA and cp.async take)."""
-    if d < 1 or d > KERNEL_WIDTHS[-1]:
-        raise ValueError(f"flash_attention: head dim {d} outside 1..."
-                         f"{KERNEL_WIDTHS[-1]} on the card")
+    head dim ``d``: up to 256 the width is the least of ``KERNEL_WIDTHS``
+    >= d, and the inputs are read in place when a row of d elements is a
+    whole number of 16-byte chunks (what the TMA and cp.async take); past
+    256 the wide kernel runs at d itself and reads the inputs in place."""
+    if d < 1:
+        raise ValueError(f"flash_attention: head dim {d} < 1")
+    if d > KERNEL_WIDTHS[-1]:
+        return d, False
     width = next(w for w in KERNEL_WIDTHS if w >= d)
     esize = torch.empty((), dtype=dtype).element_size()
     return width, (d * esize) % 16 != 0
@@ -76,7 +80,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """q: (B, H, S, D); k, v: (B, H, T, D) -> (B, H, S, D) in q's dtype.
     A CPU tensor takes the plain version; a CUDA tensor the kernel, which
-    takes fp32/bf16/fp16 and any D up to 256."""
+    takes fp32/bf16/fp16 and any D."""
     _validate(q, k, v, causal)
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal)
@@ -88,8 +92,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash_attention: dtype {q.dtype} is not fp32/bf16/fp16")
     width, padded = width_plan(d, q.dtype)
-    if q.dtype == torch.float32 and -(-s // 64) > MAX_GRID_Y:
-        raise ValueError(f"flash_attention: S={s} exceeds the fp32 kernel's grid")
+    if (q.dtype == torch.float32 or width > KERNEL_WIDTHS[-1]) \
+            and -(-s // 64) > MAX_GRID_Y:
+        raise ValueError(f"flash_attention: S={s} exceeds the CUDA-core "
+                         "kernel's grid")
     if padded:
         q, k, v = (F.pad(x, (0, width - d)).contiguous() for x in (q, k, v))
     else:

@@ -4,9 +4,10 @@ causal S == T, full S != T, causal S < T (the mask aligned bottom-right)
 and ragged T; the Pallas kernel in interpret mode at the reference's own
 kernel-test shapes and tolerance; causal S > T refused; and the model's
 ``chunked_attention`` on the same tensors. Then the head dims the card's
-kernel takes through its width plan (any D up to 256): the port at the
-configurations' D = 12, 16, 96 and 112 against the oracle and the Pallas
-kernel, the plan itself for every D and every configuration, and the
+kernel takes through its width plan (any D up to 256, and the wide
+kernel past it): the port at the configurations' D = 12, 16, 96 and 112
+and at D = 320 and 512 against the oracle and the Pallas kernel, the
+plan itself for every D and every configuration, and the
 zero-padding arithmetic the card relies on. Inputs come from numpy with
 a seed."""
 import jax.numpy as jnp
@@ -157,7 +158,8 @@ def test_width_plan_covers_every_head_dim():
     in every dtype, runs at the least kernel width >= D, read in place
     exactly when a row is a whole number of 16-byte chunks; every head dim
     of every configuration (the port's and the reference's) has a width,
-    phi3's 96 its own; past 256 the card refuses."""
+    phi3's 96 its own; past 256 the wide kernel runs at D itself, read in
+    place; only D < 1 is refused."""
     for d in range(1, 257):
         for dtype, esize in ((torch.float32, 4), (torch.bfloat16, 2),
                              (torch.float16, 2)):
@@ -171,9 +173,35 @@ def test_width_plan_covers_every_head_dim():
     assert width_plan(96, torch.bfloat16) == (96, False)
     assert width_plan(112, torch.bfloat16) == (128, False)
     assert width_plan(12, torch.bfloat16) == (32, True)
-    for d in (0, 257, 512):
-        with pytest.raises(ValueError, match="head dim"):
-            width_plan(d, torch.bfloat16)
+    for d in (257, 320, 512):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            assert width_plan(d, dtype) == (d, False)
+    with pytest.raises(ValueError, match="head dim"):
+        width_plan(0, torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", (320, 512))
+@pytest.mark.parametrize("s,t,causal", [(64, 64, True), (40, 96, True),
+                                        (48, 80, False)])
+def test_wide_head_dims_match_jax_oracle_and_pallas(d, s, t, causal):
+    """Head dims past 256 (the card's wide kernel; no configuration has
+    one): the port's CPU route against the JAX oracle within 2e-6 (fp32),
+    and against ``flash_attention_pallas`` in interpret mode within its
+    2e-3 where the two agree on the mask (S == T when causal; its default
+    blocks span S and T, so no padding goes unmasked)."""
+    q, k, v = _qkv(d + s * 100 + t, 2, 2, s, t, d)
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=causal).numpy()
+    oracle = np.asarray(jref.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                             jnp.asarray(v), causal=causal))
+    assert got.shape == (2, 2, s, d) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, oracle, rtol=0, atol=2e-6)
+    if causal and s != t:
+        return
+    pallas = np.asarray(flash_attention_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        interpret=True))
+    np.testing.assert_allclose(got, pallas, rtol=2e-3, atol=2e-3)
 
 
 @pytest.mark.parametrize("d", (12, 16, 96, 112, 200))

@@ -1,7 +1,11 @@
 """The port's kernels on the CPU (their plain PyTorch versions) against
 repro.kernels.ref and the Pallas kernels in interpret mode; the CUDA
 kernels themselves are held against the same plain versions on the card
-by chip_smoke.py."""
+by chip_smoke.py. Also the qmm kernel's launch plan, a pure function, at
+every shape chip_smoke.py gives the kernel."""
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -83,6 +87,67 @@ def test_qmm_validation():
     big = tq.quantize(torch.ones((140000, 1)), 8)     # group dot can wrap
     with pytest.raises(ValueError, match="overflow int32"):
         ops.qmm(torch.zeros((1, 140000), dtype=torch.int8), big, torch.ones(1))
+
+
+def _chip_smoke_shapes(kernel):
+    """(M, K, N, group size) of every launch chip_smoke.py's phase 2 gives
+    ``kernel`` ("qmm" or "qmm_groups"), with the tp=2 and tp=4 shards of
+    the qmm_groups shapes."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    if kernel == "qmm":
+        return [(m, k, n, 128) for _, k, n in cs.QMM_SHAPES for m in (1, 4)]
+    shapes = []
+    for name, k, n, _, m, gs in cs.QMM_GROUPS_SHAPES:
+        shapes.append((m, k, n, gs))
+        if "shard" not in name:
+            shapes += [(m, k // 2, n, gs), (m, k // 4, n, gs)]
+    return shapes
+
+
+@pytest.mark.parametrize("kernel", ["qmm", "qmm_groups"])
+def test_qmm_launch_plan_covers_the_chip_shapes(kernel):
+    """Every shape the card's checks give qmm/qmm_groups, the tp=2/4
+    shards included: the grid covers N and M, the warps stay within the
+    kernel's limit, the shared memory within the card's, a pass holds up
+    to 64 groups (zamba2's w_down, G=112, folds in two), the small
+    projections run 16 warps a CTA, and only the head's N gives a lane 16
+    columns."""
+    passes = set()
+    for m, k, n, gs in _chip_smoke_shapes(kernel):
+        groups = k // gs
+        plan = kqmm.launch_plan(m, k, n, groups)
+        assert plan.quads == (4 if n == 92544 else 1)
+        assert plan.col_tiles == -(-n // (32 * plan.quads))
+        assert plan.m_tiles * kqmm.TILE_ROWS >= m
+        assert 1 <= plan.warps <= kqmm.MAX_WARPS
+        assert plan.steps_per_group == 4
+        assert plan.smem <= kqmm.MAX_SMEM
+        assert plan.pass_groups == min(groups, kqmm.MAX_PASS_GROUPS)
+        passes.add(-(-groups // plan.pass_groups))
+        if plan.col_tiles <= kqmm.SMS:
+            assert plan.warps == min(kqmm.MAX_WARPS, groups * 4)
+    assert passes == ({1} if kernel == "qmm" else {1, 2})
+
+
+def test_qmm_launch_plan_spans_every_group():
+    """A group of any size at any offset from a 4-k unit (a W8 group need
+    not be a multiple of 4) fits in the plan's k32 steps; any number of
+    groups runs in passes that fit in shared memory, with 16-column lanes
+    (a head-wide N) at M = 8 too."""
+    for gs in range(1, 300):
+        spg = kqmm.launch_plan(1, 4 * gs, 64, 4).steps_per_group
+        for g in range(4):
+            span = (-(-(g + 1) * gs // 4)) - (g * gs // 4)
+            assert span <= 8 * spg, (gs, g)
+    plan = kqmm.launch_plan(8, 2**20, 256, 2**13)
+    assert plan.pass_groups == kqmm.MAX_PASS_GROUPS
+    assert plan.smem <= kqmm.MAX_SMEM
+    plan = kqmm.launch_plan(8, 8192, 92544, 64)
+    assert plan.quads == 4 and 1 <= plan.pass_groups < 64
+    assert plan.smem <= kqmm.MAX_SMEM
 
 
 def _pages(rng, bits, p, page, kvh, dh):
