@@ -12,6 +12,10 @@ Phases, in order; any failure exits non-zero:
      plain PyTorch version on the card at
      the main paths' shapes, and time kernel, plain version and the one
      PyTorch library call computing the same function (CUDA events);
+     check that one serving call of qmm, int8_matmul and paged_attention
+     is one launch with no allocation but its output (and the paged
+     partials where a context spans CTAs), and that paged_attention's
+     slots alone and its kv-head shards equal the batched, full call;
   3a. the packed paged decode of the internlm2_1_8b, olmoe_1b_7b and
      deepseek_moe_16b smoke configs on the card against the CPU plain path;
   3b. drive each main path at full width — internlm2_1_8b (dense) and
@@ -150,17 +154,10 @@ def check_one_launch(kmod, xq, qt, xs) -> dict:
     """One serving-path qmm call (no terms) is one launch of the qmm
     kernel, no other kernel of the module, and one allocation: its (M, N)
     output, no (G, M, N) scratch."""
-    torch.cuda.synchronize()
-    counts = lambda: (kmod.launches, kmod.launches_groups,  # noqa: E731
-                      kmod.launches_fold)
-    before, st0 = counts(), torch.cuda.memory_stats()
-    y = kmod.qmm(xq, qt, xs)
-    torch.cuda.synchronize()
-    after, st1 = counts(), torch.cuda.memory_stats()
-    allocs = st1["allocation.all.allocated"] - st0["allocation.all.allocated"]
-    nbytes = (st1["allocated_bytes.all.allocated"]
-              - st0["allocated_bytes.all.allocated"])
-    launched = tuple(a - b for a, b in zip(after, before))
+    y, launched, allocs, nbytes = count_call(
+        lambda: kmod.qmm(xq, qt, xs),
+        [lambda: kmod.launches, lambda: kmod.launches_groups,
+         lambda: kmod.launches_fold])
     if launched != (1, 0, 0) or allocs != 1 or nbytes < y.numel() * 4 \
             or nbytes >= y.numel() * 4 + 512 * 1024:
         raise AssertionError(f"qmm serving call: launches (qmm, qmm_groups, "
@@ -409,6 +406,40 @@ INT8_SHAPES = [("wq/wo", 2048, 2048, (1, 4)), ("wk/wv", 2048, 1024, (4,)),
                ("full-K limit", 133_144, 256, (1,))]
 
 
+def count_call(fn, counters) -> tuple:
+    """Run ``fn`` once on the card: (its result, the launches each counter
+    in ``counters`` (zero-argument callables) rose by, the allocations it
+    made and their bytes)."""
+    torch.cuda.synchronize()
+    before, st0 = [c() for c in counters], torch.cuda.memory_stats()
+    y = fn()
+    torch.cuda.synchronize()
+    after, st1 = [c() for c in counters], torch.cuda.memory_stats()
+    allocs = st1["allocation.all.allocated"] - st0["allocation.all.allocated"]
+    nbytes = (st1["allocated_bytes.all.allocated"]
+              - st0["allocated_bytes.all.allocated"])
+    return y, tuple(a - b for a, b in zip(after, before)), allocs, nbytes
+
+
+def check_int8_one_launch(kmod, xq, w, xs, ws) -> dict:
+    """One serving-path int8_matmul call, as ``DequantContext`` makes it
+    (``ops.int8_matmul`` with (M, 1) row scales and (1, N) weight scales):
+    one launch of the kernel and one allocation, its (M, N) fp32 output —
+    no int32 scratch, no epilogue launch, no cast."""
+    from repro_torch.kernels import ops
+
+    y, launched, allocs, nbytes = count_call(
+        lambda: ops.int8_matmul(xq, w, xs.reshape(-1, 1), ws.reshape(1, -1)),
+        [lambda: kmod.launches])
+    if launched != (1,) or allocs != 1 or nbytes < y.numel() * 4 \
+            or nbytes >= y.numel() * 4 + 512 * 1024:
+        raise AssertionError(f"int8_matmul serving call: {launched[0]} "
+                             f"launches, {allocs} allocations of {nbytes} B "
+                             f"for a {tuple(y.shape)} fp32 output")
+    return {"launches": launched[0], "allocations": allocs,
+            "allocated_bytes": nbytes}
+
+
 def check_int8_matmul(timer, gen, rows):
     """The W8A8 kernel against its plain version: outputs ``torch.equal``
     (integer accumulation, the same fp32 epilogue in the same order).
@@ -447,6 +478,7 @@ def check_int8_matmul(timer, gen, rows):
             err = check(f"{name} M={m}", xq, w, xs, ws)
             if name == "wq/wo" and m == 4:
                 check(f"{name} M={m} scalar x_scale", xq, w, 0.0123, ws)
+                one = check_int8_one_launch(kmod, xq, w, xs, ws)
             nbytes = k * n + m * k + 4 * (m + n + m * n)
             b_ms, b_by = bound_ms(nbytes, 2.0 * m * k * n, INT8_OPS)
             xb = (xq.float() * xs[:, None]).to(torch.bfloat16)
@@ -463,6 +495,8 @@ def check_int8_matmul(timer, gen, rows):
                    "library_ms": int_mm_ms,
                    "library_bf16_ms": timer(lambda: torch.matmul(xb, wd)),
                    "bound_ms": b_ms, "bound_by": b_by}
+            if name == "wq/wo" and m == 4:
+                row["one_launch"] = one
             rows.append(row)
             log(json.dumps(row))
         del w, wd
@@ -502,22 +536,86 @@ def _random_pages(gen, bits, p, page, kvh, dh):
     return mk(), mk(), sc(), sc()
 
 
+def check_paged_one_launch(kmod, q, kp, vp, table, lengths, ks, vs,
+                           bits) -> dict:
+    """One serving-path paged_attention call, as the model makes it
+    (``ops.paged_attention`` with (B, 1, H, Dh) queries, an int32 table
+    and int64 positions): one launch of the kernel and one allocation, the
+    output, plus the partials' scratch where the plan splits a context —
+    no cast of the table or lengths, no ``pos + 1``, no scale tensor."""
+    from repro_torch.kernels import ops
+
+    b, kvh, g, dh = q.shape
+    q1 = q.reshape(b, 1, kvh * g, dh)
+    pos = lengths.long() - 1
+    plan = kmod.launch_plan(table.shape[1], kp.shape[1], dh, g,
+                            kmod.kv_mode(kp.dtype, bits))
+    y, launched, allocs, nbytes = count_call(
+        lambda: ops.paged_attention(q1, kp, vp, table, pos, ks, vs, bits),
+        [lambda: kmod.launches])
+    scratch = 4 * b * kvh * plan.ctas * g * (2 + dh) if plan.ctas > 1 else 0
+    want = y.numel() * y.element_size() + scratch
+    if launched != (1,) or allocs != 1 + (plan.ctas > 1) or nbytes < want \
+            or nbytes >= want + 512 * 1024:
+        raise AssertionError(f"paged_attention serving call: {launched[0]} "
+                             f"launches, {allocs} allocations of {nbytes} B "
+                             f"for a {tuple(y.shape)} output and {scratch} B "
+                             f"of partials ({plan.ctas} CTAs a slot and head)")
+    if not torch.equal(y, kmod.paged_attention(q, kp, vp, table, lengths, ks,
+                                               vs, bits)):
+        raise AssertionError("paged_attention: ops.paged_attention(pos) "
+                             "differs from paged_attention(pos + 1)")
+    return {"launches": launched[0], "allocations": allocs,
+            "allocated_bytes": nbytes, "ctas_per_slot_head": plan.ctas}
+
+
+def check_paged_contracts(kmod, got, q, kp, vp, table, lengths, ks, vs,
+                          bits) -> None:
+    """The kernel's own bit-for-bit contracts: each slot of the batched
+    call equals the slot called alone (the split of a slot's pages does
+    not depend on B), and the first KV/2 heads, as their own contiguous
+    pools and scales, equal those heads of the full call (a kv-head
+    shard under tensor parallelism)."""
+    b, kvh = q.shape[:2]
+    for i in range(b):
+        one = kmod.paged_attention(q[i:i + 1], kp, vp, table[i:i + 1],
+                                   lengths[i:i + 1], ks, vs, bits)
+        if not torch.equal(one, got[i:i + 1]):
+            raise AssertionError(f"paged_attention W{bits}: slot {i} alone "
+                                 "differs from the batched call")
+    hs = kvh // 2
+    sub = (lambda t: None if t is None  # noqa: E731
+           else t[:, :hs].contiguous() if t.ndim == 2
+           else t[:, :, :hs].contiguous())
+    shard = kmod.paged_attention(q[:, :hs].contiguous(), sub(kp), sub(vp),
+                                 table, lengths, sub(ks), sub(vs), bits)
+    if not torch.equal(shard, got[:, :hs]):
+        raise AssertionError(f"paged_attention W{bits}: the first {hs} heads "
+                             "as their own pools differ from the full call")
+
+
 def check_paged_attention(timer, gen, rows, b=4, kvh=8, g=2, dh=128, page=16,
-                          max_len=256):
+                          max_len=256, lengths=(1, 37, 130, 256),
+                          widths=(16, 8, 6, 4, 3)):
+    """paged_attention against its plain version at every KV width, its
+    one-launch serving call and its alone == batched and shard == full
+    contracts; ``max_len`` 4096 is the long-context row, whose slots span
+    several CTAs (the cross-CTA fold)."""
     import torch.nn.functional as F
     from repro_torch.kernels import paged_attention as kmod, ref
     from repro_torch.qtensor import unpack
 
     np_ = max_len // page
     p = b * np_
-    lengths = torch.tensor([1, 37, 130, 256], dtype=torch.int32, device="cuda")
+    lengths = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     perm = torch.randperm(p, generator=gen, device="cuda").to(torch.int32)
     table = perm.reshape(b, np_).clone()
     for i, ln in enumerate(lengths.tolist()):
         used = -(-ln // page)
         table[i, used:] = p + i          # unmapped tail (ids >= P)
     q = torch.randn((b, kvh, g, dh), generator=gen, device="cuda").to(torch.bfloat16)
-    for bits in (16, 8, 6, 4, 3):
+    long_ctx = max_len != 256
+    for bits in widths:
         kp, vp, ks, vs = _random_pages(gen, bits, p, page, kvh, dh)
         got = kmod.paged_attention(q, kp, vp, table, lengths, ks, vs, bits)
         # the plain version on the same values in fp32: the kernel's bf16
@@ -533,6 +631,9 @@ def check_paged_attention(timer, gen, rows, b=4, kvh=8, g=2, dh=128, page=16,
         err = diff.max().item()
         if not bool((diff <= 2e-3 + 2.0 ** -8 * want.abs()).all()):
             raise AssertionError(f"paged_attention W{bits}: max err {err}")
+        check_paged_contracts(kmod, got, q, kp, vp, table, lengths, ks, vs, bits)
+        one = (check_paged_one_launch(kmod, q, kp, vp, table, lengths, ks, vs,
+                                      bits) if bits in (16, 8) else None)
         # the one library call: SDPA over the gathered, dequantized pages
         ids = table.clamp(0, p - 1).long()
         kg, vg = kp[ids], vp[ids]
@@ -541,6 +642,7 @@ def check_paged_attention(timer, gen, rows, b=4, kvh=8, g=2, dh=128, page=16,
             vg = unpack(vg, bits).float() * vs[ids][:, :, None, :, None]
         kd = kg.reshape(b, max_len, kvh, dh).to(torch.bfloat16)
         vd = vg.reshape(b, max_len, kvh, dh).to(torch.bfloat16)
+        del kg, vg
         kd = kd.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
         vd = vd.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
         qd = q.reshape(b, kvh * g, 1, dh)
@@ -554,7 +656,9 @@ def check_paged_attention(timer, gen, rows, b=4, kvh=8, g=2, dh=128, page=16,
                   + b * (np_ + 1) * 4)
         b_ms, b_by = bound_ms(nbytes, 4.0 * kvh * g * dh * tokens, FP32_FLOPS)
         row = {"kernel": "paged_attention",
-               "shape": f"B={b} KV={kvh} G={g} Dh={dh} page={page} W{bits}",
+               "shape": (f"B={b} KV={kvh} G={g} Dh={dh} page={page}"
+                         + (f" NP={np_} lengths={lengths.tolist()}"
+                            if long_ctx else "") + f" W{bits}"),
                "bits": bits, "max_abs_err": err,
                "ms": timer(lambda: kmod.paged_attention(q, kp, vp, table,
                                                         lengths, ks, vs, bits)),
@@ -564,8 +668,11 @@ def check_paged_attention(timer, gen, rows, b=4, kvh=8, g=2, dh=128, page=16,
                "library_ms": timer(lambda: F.scaled_dot_product_attention(
                    qd, kd, vd, attn_mask=mask)),
                "bound_ms": b_ms, "bound_by": b_by}
+        if one is not None:
+            row["one_launch"] = one
         rows.append(row)
         log(json.dumps(row))
+        del kp, vp, kd, vd
 
 
 BF16_FLOPS = 989e12            # tensor cores, dense; fp16 the same
@@ -764,6 +871,16 @@ def check_flash_attention(timer, gen, rows):
 PHASE2 = [("ef_sqnorm", check_ef_sqnorm, {}),
           ("paged_attention", check_paged_attention, {}),
           ("paged_attention", check_paged_attention, {"kvh": 16, "g": 1}),  # olmoe's GQA
+          # a long context: slots spanning several CTAs (the cross-CTA fold)
+          ("paged_attention", check_paged_attention,
+           {"max_len": 4096, "lengths": (1, 1000, 2500, 4096), "widths": (8, 16)}),
+          # G = 4 (the kernel's two passes over the query rows) and Dh =
+          # 576 (two chunk sets a row: K chunks past the first 32 and a
+          # second V pass)
+          ("paged_attention", check_paged_attention,
+           {"kvh": 4, "g": 4, "widths": (8, 16)}),
+          ("paged_attention", check_paged_attention,
+           {"kvh": 4, "g": 2, "dh": 576, "widths": (8, 16)}),
           ("qmm", check_qmm, {}),
           ("qmm_groups", check_qmm_groups, {}),
           ("grouped_qmm", check_grouped_qmm, {}),

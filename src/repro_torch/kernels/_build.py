@@ -38,9 +38,12 @@ SIGNATURES = {
     "qmm_groups_fold_launch": [_P, _P, _P, _L, _L, _L, _P],
     "grouped_qmm_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
                            _L, _L, _L, _L, _L, _L, _L, _P],
-    "int8_matmul_launch": [_P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L, _P],
-    "paged_attention_launch": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P,
-                               _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "int8_matmul_launch": [_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I,
+                           _P],
+    "paged_attention_launch": [_P, _I, _L, _P, _P, _I, _P, _I, _L, _P, _I,
+                               _L, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _P],
     "fake_quant_launch": [_P, _P, _I, _L, _P, _P, _F, _P],
     "fake_quant_per_channel_launch": [_P, _P, _I, _L, _L, _L, _P, _P, _F, _P],
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -15,8 +15,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention as _flash_attention)
 from repro_torch.kernels.grouped_qmm import grouped_qmm as _grouped_qmm
 from repro_torch.kernels.int8_matmul import int8_matmul as _int8_matmul
-from repro_torch.kernels.paged_attention import (
-    paged_attention as _paged_attention)
+from repro_torch.kernels.paged_attention import attend as _attend
 from repro_torch.kernels.qmm import qmm as _qmm
 from repro_torch.kernels.qmm import qmm_groups as _qmm_groups
 from repro_torch.kernels.qmm import qmm_groups_fold as _qmm_groups_fold
@@ -47,14 +46,13 @@ def ef_sqnorm(g: torch.Tensor) -> torch.Tensor:
 def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale, w_scale,
                 out_dtype=torch.float32) -> torch.Tensor:
     """W8A8: (M, K) int8 x (K, N) int8 with per-row activation scales
-    (a scalar or (M,) ``x_scale`` becomes (M, 1)) and per-channel weight
-    scales. The full-K overflow proof runs on every route."""
+    (a scalar, (M,) or (M, 1) ``x_scale``) and per-channel weight scales.
+    The full-K overflow proof runs on every route. The scales are
+    normalised once, in the kernel wrapper; an fp32 ``out_dtype`` adds
+    no cast."""
     require_full_k_safe(8, 8, x_q.shape[-1], where="ops.int8_matmul")
-    xs = torch.as_tensor(x_scale, dtype=torch.float32, device=x_q.device)
-    xs = xs.reshape(-1, 1)
-    if xs.shape[0] == 1:
-        xs = xs.expand(x_q.shape[0], 1)
-    return _int8_matmul(x_q, w_q, xs, w_scale).to(out_dtype)
+    y = _int8_matmul(x_q, w_q, x_scale, w_scale)
+    return y if out_dtype == torch.float32 else y.to(out_dtype)
 
 
 def qmm(x_q: torch.Tensor, w, x_scale, out_dtype=torch.float32) -> torch.Tensor:
@@ -94,10 +92,12 @@ def grouped_qmm(x_q: torch.Tensor, w, x_scale: torch.Tensor,
 def paged_attention(q, k_pages, v_pages, table, pos, k_scale=None,
                     v_scale=None, bits: int = 16) -> torch.Tensor:
     """Decode GQA over paged KV. q: (B, 1, H, Dh) -> (B, KV, G, Dh) in
-    q's dtype. The wrapper takes ``pos + 1`` as lengths; its CPU route
-    is the plain gather version, bit-identical to the dense read path."""
+    q's dtype; ``pos`` (B,) int32/int64 positions (positions <= pos
+    attend), read by the kernel with an offset of 1 (no ``pos + 1`` op).
+    The CPU route is the plain gather version, bit-identical to the dense
+    read path."""
     kvh = k_pages.shape[2]
     b, _, h, dh = q.shape
     qh = q.reshape(b, kvh, h // kvh, dh)
-    return _paged_attention(qh, k_pages, v_pages, table, pos + 1,
-                            k_scale, v_scale, bits)
+    return _attend(qh, k_pages, v_pages, table, pos, 1, k_scale, v_scale,
+                   bits)

@@ -27,7 +27,7 @@ from repro_torch.configs import smoke_config as t_smoke
 from repro_torch.convert import params_from_numpy
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.int8_matmul import (
-    BATCH, int8_matmul as k_int8_matmul, plan_split)
+    SMS, STEP, TILE_ROWS, int8_matmul as k_int8_matmul, launch_plan)
 from repro_torch.models.context import DequantContext
 from repro_torch.models.transformer import forward as t_forward
 from repro_torch.qtensor import QTensor
@@ -104,13 +104,31 @@ def test_wrapper_refuses_bad_operands():
 
 @pytest.mark.parametrize("m,k,n", [(1, 2048, 2048), (4, 2048, 92544),
                                    (4, 8192, 2048), (3, 2056, 1000),
-                                   (1, 133_144, 256), (4, 300, 8), (2, 32, 1)])
-def test_plan_split_covers_k(m, k, n):
-    """The kernel's K splits: 32-row multiples, every split non-empty,
-    together exactly K."""
-    chunk, ksplit = plan_split(m, k, n, sms=132)
-    assert chunk % BATCH == 0 and chunk > 0
-    assert (ksplit - 1) * chunk < k <= ksplit * chunk
+                                   (1, 133_144, 256), (4, 300, 8), (2, 32, 1),
+                                   (4, 2048, 1024)])
+def test_launch_plan_covers_k(m, k, n):
+    """The kernel's one launch: the warps' contiguous runs of k32 steps,
+    as the kernel forms them (warp w from w * ceil(steps / warps)), cover
+    K exactly once, none empty, each the plan's length; the grid covers
+    N and M; 16-column lanes (128-column CTAs) only on the head's N;
+    wq/wo's 64 column tiles of 32 run 16 warps each (1,024 warps of
+    loads for the card's 132 SMs)."""
+    plan = launch_plan(m, k, n)
+    steps = -(-k // STEP)
+    ipw = -(-steps // plan.warps)
+    assert ipw == plan.steps_per_warp
+    runs = [range(min(steps, w * ipw), min(steps, (w + 1) * ipw))
+            for w in range(plan.warps)]
+    assert [s for r in runs for s in r] == list(range(steps))
+    assert all(len(r) for r in runs)
+    assert (plan.col_tiles - 1) * plan.cols < n <= plan.col_tiles * plan.cols
+    assert plan.m_tiles * TILE_ROWS >= m
+    assert plan.cols == (128 if n == 92544 else 32)
+    assert 1 <= plan.warps <= (4 if plan.cols == 128 else 16)
+    if (k, n) == (2048, 2048):
+        assert (plan.col_tiles, plan.warps) == (64, 16)
+        assert plan.col_tiles * plan.warps >= SMS
+    assert launch_plan(m, k, n, sms=SMS) == plan
 
 
 def _bits_mixed(names):

@@ -18,6 +18,7 @@ from repro.kernels.paged_attention import paged_attention_pallas
 from repro.kernels.qmm import qmm_pallas
 from repro_torch import qtensor as tq
 from repro_torch.kernels import ef_sqnorm as kef, ops, qmm as kqmm, ref as tref
+from repro_torch.kernels import paged_attention as kpa
 
 
 @pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
@@ -183,10 +184,122 @@ def test_paged_attention(bits):
     want = np.asarray(jref.paged_attention(*jargs, bits=bits))
     got = ops.paged_attention(*targs, bits=bits)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    by_len = kpa.paged_attention(targs[0].reshape(b, kvh, g, dh), *targs[1:4],
+                                 targs[4] + 1, targs[5], targs[6], bits=bits)
+    assert torch.equal(by_len, got)
     pal = paged_attention_pallas(jargs[0].reshape(b, kvh, g, dh), *jargs[1:4],
                                  jargs[4] + 1, jargs[5], jargs[6], bits=bits,
                                  interpret=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(pal), atol=1e-5, rtol=0)
+
+
+# (NP, page, Dh, G): phase 2's shapes on the card (internlm2's GQA and
+# olmoe's, max_len 256), its long-context row (NP = 256), the dense cache
+# read as pages at a smoke config, a 64K context, and head dims that take the kernel's
+# checked loads (12), padded lanes (96) and two chunk passes (576)
+PAGED_PLAN_SHAPES = [(16, 16, 128, 2), (16, 16, 128, 1), (256, 16, 128, 2),
+                     (4096, 16, 128, 1),
+                     (4, 8, 12, 1), (8, 8, 16, 2), (32, 16, 96, 4),
+                     (40, 16, 576, 2)]
+
+
+def _paged_walk(plan, np_, page, length):
+    """The pages that ``paged_attn_kernel`` visits for one (slot, head)
+    of ``length`` tokens, with its own index arithmetic: the valid pages
+    npv, the CTAs that hold some (nvc), the CTAs that run past the early
+    exit, and for each page the (CTA, warp) that scores it. Also checks
+    that no warp reads a table entry past NP."""
+    npv = 0 if length <= 0 else min(-(-length // page), np_)
+    ppc = plan.warps * plan.pages_per_warp
+    nvc = -(-npv // ppc)
+    running, owners = [], {}
+    for split in range(plan.ctas):
+        if split >= max(nvc, 1):
+            continue
+        running.append(split)
+        for warp in range(plan.warps):
+            pw0 = split * ppc + warp * plan.pages_per_warp
+            assert pw0 + max(0, min(plan.pages_per_warp, np_ - pw0)) <= np_
+            npw = max(0, min(plan.pages_per_warp, npv - pw0))
+            for j in range(npw):
+                owners.setdefault(pw0 + j, []).append((split, warp))
+    return npv, nvc, running, owners
+
+
+@pytest.mark.parametrize("np_,page,dh,g", PAGED_PLAN_SHAPES)
+def test_paged_attention_launch_plan_owns_every_page_once(np_, page, dh, g):
+    """The kernel's split of a (slot, kv-head)'s pages, walked with the
+    kernel's own arithmetic for lengths across the context: every valid
+    page scored by exactly one (CTA, warp), in page order, so the folds
+    run in page order; the CTAs that exit at once are exactly those past
+    the last valid page (none but CTA 0 for an empty slot), and a split
+    never indexes past the partials the wrapper allocates for B x KV
+    (slot, head)s. The plan is a function of (NP, page, Dh, G, KV width)
+    alone, so every slot of any batch and every kv-head shard walks the
+    same pages the same way. Up to 8 pages are one CTA (no cross-CTA
+    fold), and a warp takes one page up to 64."""
+    import inspect
+    assert list(inspect.signature(kpa.launch_plan).parameters) == [
+        "np_", "page", "dh", "g", "kvmode"]
+    stride = max(1, np_ // 96)
+    lengths = sorted({0, 1, np_ * page, np_ * page + 7}
+                     | {j * page + d for j in range(0, np_, stride)
+                        for d in (1, page // 2, page)})
+    for kvmode in (32, 16, 8, 6, 4):
+        plan = kpa.launch_plan(np_, page, dh, g, kvmode)
+        for length in lengths:
+            npv, nvc, running, owners = _paged_walk(plan, np_, page, length)
+            assert sorted(owners) == list(range(npv))
+            assert all(len(o) == 1 for o in owners.values())
+            order = [owners[j][0] for j in range(npv)]
+            assert order == sorted(order)
+            assert running == list(range(max(nvc, 1)))
+            assert nvc <= plan.ctas
+            for b, kvh in ((1, 4), (4, 8), (4, 16)):
+                # partial (bh, split) of the last (slot, head) is the
+                # wrapper's last block when the context fills every CTA
+                last = ((b * kvh - 1) * plan.ctas + max(nvc, 1) - 1)
+                assert last < b * kvh * plan.ctas
+        assert 1 <= plan.warps * 32 <= 256 and 1 <= plan.pages_per_warp <= 32
+        assert plan.ctas == -(-np_ // (plan.warps * plan.pages_per_warp))
+        assert plan.ctas <= kpa.MAX_GRID_Y and plan.smem <= kpa.MAX_SMEM
+        lanes = 1 << plan.lanes_log2
+        assert lanes <= 32 and plan.dpad == plan.chunk_sets * lanes * 16 >= dh
+        assert (plan.chunk_sets > 1) == (dh > 512)
+        assert plan.pages_per_warp == min(32, -(-np_ // 64))
+        if np_ <= 8:
+            assert plan.ctas == 1
+
+
+_CTYPE_OF = {"int": "c_int", "long long": "c_longlong", "float": "c_float"}
+
+
+def test_launcher_signatures_match_the_sources():
+    """Every ``extern "C"`` launcher in csrc/ has its ctypes argument types
+    in ``_build.SIGNATURES``, one for one: a pointer (and the stream) as
+    c_void_p, ``int`` as c_int, ``long long`` as c_longlong, ``float`` as
+    c_float. ctypes passes an extra argument to a C function silently, so
+    a list one short would hand the stream to the wrong slot."""
+    import ctypes
+    import re
+    from repro_torch.kernels import _build
+
+    found = {}
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        text = re.sub(r"//[^\n]*", "", src.read_text())
+        for name, params in re.findall(
+                r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)', text):
+            kinds = []
+            for param in params.split(","):
+                decl = " ".join(param.replace("const", " ").split())
+                if "*" in decl:
+                    kinds.append("c_void_p")
+                else:
+                    kinds.append(_CTYPE_OF[decl.rsplit(" ", 1)[0]])
+            found[name] = kinds
+    assert sorted(found) == sorted(_build.SIGNATURES)
+    for name, kinds in found.items():
+        assert _build.SIGNATURES[name] == [getattr(ctypes, t) for t in kinds], name
 
 
 def test_kernels_need_cpu_or_cuda():
