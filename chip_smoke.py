@@ -16,6 +16,10 @@ Phases, in order; any failure exits non-zero:
      is one launch with no allocation but its output (and the paged
      partials where a context spans CTAs), and that paged_attention's
      slots alone and its kv-head shards equal the batched, full call;
+     that each flash row runs the kernel its head dim and dtype plan
+     (bf16/fp16 past D = 256: the split-head-dim kernel up to 512, one
+     launch with no input copy when a row is whole 16-byte chunks), and
+     that every route of the per-channel fake-quant plan is checked;
   3a. the packed paged decode of the internlm2_1_8b, olmoe_1b_7b and
      deepseek_moe_16b smoke configs on the card against the CPU plain path;
   3b. drive each main path at full width — internlm2_1_8b (dense) and
@@ -677,13 +681,16 @@ def check_paged_attention(timer, gen, rows, b=4, kvh=8, g=2, dh=128, page=16,
 
 BF16_FLOPS = 989e12            # tensor cores, dense; fp16 the same
 
-# (name, shape); ragged sizes, internlm2_1_8b's square attention weight,
-# an MLP block and the embedding
+# (name, shape); ragged sizes, a 3-D shape whose middle axis has a short
+# inner stride (the per-channel element walk), internlm2_1_8b's square
+# attention weight, an MLP block, the embedding and an activation
 FQ_SHAPES = [("ragged 7", (7,)), ("ragged 300x257", (300, 257)),
+             ("middle 64x96x12", (64, 96, 12)),
              ("wq 2048x2048", (2048, 2048)), ("w_up 2048x8192", (2048, 8192)),
-             ("embed 92544x2048", (92544, 2048))]
+             ("embed 92544x2048", (92544, 2048)),
+             ("act 4x512x2048", (4, 512, 2048))]
 FQ_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
-FQ_SMALL = ("ragged 7", "ragged 300x257", "wq 2048x2048")
+FQ_SMALL = ("ragged 7", "ragged 300x257", "middle 64x96x12", "wq 2048x2048")
 
 
 def _fq_library(x, s, zp, axis, lv):
@@ -702,18 +709,25 @@ def check_fake_quant(timer, gen, rows):
     """Both fake-quant kernels against the plain version: ``torch.equal``
     at every dtype (fp32/bf16/fp16), width (8/4/3 bits), grid (affine and
     symmetric ``levels``) and granularity (per tensor; per channel along
-    the last axis and along axis 0, the square wq among them) on the
-    small and ragged shapes; at the MLP block and the embedding, bf16 W4
-    per tensor and W8 symmetric per channel on both axes, timed."""
+    the last axis, along axis 0 and, on the 3-D shape, along the middle
+    axis: every route of ``launch_plan``) on the small and ragged shapes;
+    at the MLP block and the embedding, bf16 W4 per tensor and W8
+    symmetric per channel on both axes, and at an activation-shaped
+    (4, 512, 2048) on the last and middle axes, timed (the small shapes'
+    bf16 W8 symmetric rows too)."""
     from repro_torch.kernels import fake_quant as kmod, ref
     from repro_torch.quant.quantizer import QuantSpec, quant_params
 
     n_checked = 0
+    routes = set()
     for name, shape in FQ_SHAPES:
         x32 = torch.randn(shape, generator=gen, device="cuda") * 0.05
+        axes = (None, -1, 0, 1) if len(shape) > 2 else (None, -1, 0)
         if name in FQ_SMALL:
             grid = [(dt, b, sym, ax) for dt in FQ_DTYPES for b in (8, 4, 3)
-                    for sym in (False, True) for ax in (None, -1, 0)]
+                    for sym in (False, True) for ax in axes]
+        elif len(shape) > 2:
+            grid = [(torch.bfloat16, 8, True, -1), (torch.bfloat16, 8, True, 1)]
         else:
             grid = [(torch.bfloat16, 4, False, None),
                     (torch.bfloat16, 8, True, -1), (torch.bfloat16, 8, True, 0)]
@@ -738,8 +752,12 @@ def check_fake_quant(timer, gen, rows):
                 raise AssertionError(f"{tag}: differs from the plain version "
                                      f"(max err {err})")
             n_checked += 1
+            route = None
+            if ax is not None:
+                route = kmod.launch_plan(x.shape, ax, dt).route
+                routes.add(route)
             if name in FQ_SMALL and not (dt == torch.bfloat16 and bits == 8
-                                          and sym and ax in (None, 0)):
+                                          and sym):
                 continue
             kname = "fake_quant" if ax is None else "fake_quant_per_channel"
             nbytes = 2 * x.numel() * x.element_size() + 8 * s.numel()
@@ -748,7 +766,7 @@ def check_fake_quant(timer, gen, rows):
                    "shape": f"{name} {str(dt)[6:]} W{bits} "
                             f"{'sym' if sym else 'affine'}"
                             + ("" if ax is None else f" axis={ax}"),
-                   "max_abs_err": 0.0,
+                   "route": route, "max_abs_err": 0.0,
                    "ms": timer(lambda: kmod.fake_quant(x, s, zp, bits, lv)),
                    "plain_ms": timer(lambda: ref.fake_quant(x, s, zp, bits, lv)),
                    "library_ms": timer(_fq_library(x, s, zp, ax, lv)),
@@ -756,6 +774,8 @@ def check_fake_quant(timer, gen, rows):
             rows.append(row)
             log(json.dumps(row))
         del x32
+    if routes != {kmod.ROUTE_WALK, kmod.ROUTE_ROWS, kmod.ROUTE_RUNS}:
+        raise AssertionError(f"fake_quant_per_channel: routes {routes} checked")
     log(f"fake_quant: {n_checked} shapes/dtypes/grids equal to the plain version")
 
 
@@ -765,8 +785,15 @@ def check_fake_quant(timer, gen, rows):
 # configurations: phi3's prefill at D=96 (its own width), zamba2's D=112
 # (width 128, columns past D filled by the TMA), the smoke configs' D=12
 # (copied zero-padded to width 32) and D=16, D=256 (64-key tiles), fp32
-# at D=96 and at D=12; then head dims past 256 (the wide CUDA-core
-# kernel, 128-column slabs of O) at D=320 and 512 in each dtype
+# at D=96 and at D=12; then head dims past 256 at D=320 and 512 in each
+# dtype (bf16/fp16: the split-head-dim wgmma kernel; fp32: the wide
+# CUDA-core kernel, 128-column slabs of O), prefill-sized causal rows at
+# D=320 and 512, D=300 (copied zero-padded to width 320), D=296 (read in
+# place, the TMA filling columns 296..319), D=384 and 448 (the split
+# kernel's other two widths) and D=576 (bf16 past 512: the wide CUDA-core
+# kernel); fp32 at S=T=1024 H=16 (grids large enough for
+# its kernel to form S once over all columns) and at D=301 (4-byte
+# copies)
 FLASH_CASES = [
     ("causal S=T=2048", 4, 16, 2048, 2048, 128, torch.bfloat16, True),
     ("causal S=T=4096", 4, 16, 4096, 4096, 128, torch.bfloat16, True),
@@ -791,7 +818,25 @@ FLASH_CASES = [
      True),
     ("full fp16 D=512 S=128 T=512", 2, 8, 128, 512, 512, torch.float16, False),
     ("causal fp32 D=512 S=T=256", 2, 4, 256, 256, 512, torch.float32, True),
+    ("causal S=T=2048 D=320", 2, 16, 2048, 2048, 320, torch.bfloat16, True),
+    ("causal S=T=2048 D=512", 2, 16, 2048, 2048, 512, torch.bfloat16, True),
+    ("causal S=T=256 padded D=300", 2, 8, 256, 256, 300, torch.bfloat16, True),
+    ("causal S=T=256 in place D=296", 2, 8, 256, 256, 296, torch.bfloat16, True),
+    ("full fp16 D=384 S=128 T=512", 2, 8, 128, 512, 384, torch.float16, False),
+    ("causal ragged S=T=200 D=448", 2, 4, 200, 200, 448, torch.bfloat16, True),
+    ("causal S=T=256 D=576", 2, 8, 256, 256, 576, torch.bfloat16, True),
+    ("causal fp32 D=320 S=T=1024", 2, 16, 1024, 1024, 320, torch.float32, True),
+    ("causal fp32 D=512 S=T=1024", 2, 16, 1024, 1024, 512, torch.float32, True),
+    ("full fp32 ragged D=301 S=100 T=300", 2, 4, 100, 300, 301, torch.float32,
+     False),
 ]
+# the kernel each head dim and dtype must take past 256
+WIDE_KERNEL = {(torch.bfloat16, 320): "split", (torch.float16, 320): "split",
+               (torch.bfloat16, 512): "split", (torch.float16, 512): "split",
+               (torch.bfloat16, 300): "split", (torch.bfloat16, 296): "split",
+               (torch.float16, 384): "split", (torch.bfloat16, 448): "split",
+               (torch.bfloat16, 576): "wide", (torch.float32, 320): "f32_wide",
+               (torch.float32, 512): "f32_wide", (torch.float32, 301): "f32_wide"}
 
 
 def flash_pairs(s: int, t: int, causal: bool) -> int:
@@ -819,7 +864,16 @@ def check_flash_attention(timer, gen, rows):
         mk = lambda n: torch.randn((b, h, n, d), generator=gen,  # noqa: E731
                                    device="cuda").to(dt)
         q, k, v = mk(s), mk(t), mk(t)
+        kernel = kmod.kernel_for(kmod.width_plan(d, dt)[0], dt)
+        if d > 256 and WIDE_KERNEL[(dt, d)] != kernel:
+            raise AssertionError(f"flash_attention {name}: planned for the "
+                                 f"{kernel} kernel, not {WIDE_KERNEL[(dt, d)]}")
+        before = dict(kmod.launches_by_kernel)
         got = kmod.flash_attention(q, k, v, causal=causal)
+        ran = {n: c - before[n] for n, c in kmod.launches_by_kernel.items()}
+        if ran != {n: int(n == kernel) for n in ran}:
+            raise AssertionError(f"flash_attention {name}: launched {ran}, "
+                                 f"not one {kernel}")
         want = ref.flash_attention(q, k, v, causal=causal).float()
         mag = ref.flash_attention(q.float(), k.float(), v.float().abs(),
                                   causal=causal)
@@ -845,7 +899,7 @@ def check_flash_attention(timer, gen, rows):
                 q, k, v, is_causal=causal)
         row = {"kernel": "flash_attention",
                "shape": f"{name} B={b} H={h} D={d} {str(dt)[6:]}",
-               "max_abs_err": err, "tolerance_share": ratio,
+               "route": kernel, "max_abs_err": err, "tolerance_share": ratio,
                "ms": timer(lambda: kmod.flash_attention(q, k, v, causal=causal)),
                "plain_ms": timer(lambda: ref.flash_attention(q, k, v, causal=causal)),
                "library_ms": timer(lib),
@@ -853,6 +907,7 @@ def check_flash_attention(timer, gen, rows):
         rows.append(row)
         log(json.dumps(row))
         del q, k, v, got, want, diff
+    check_flash_split_one_launch(kmod, gen)
     # causal S > T is refused before any launch
     before = kmod.launches
     q = torch.zeros((1, 1, 65, 32), device="cuda")
@@ -865,6 +920,25 @@ def check_flash_attention(timer, gen, rows):
         raise AssertionError("flash_attention accepted causal S > T")
     if kmod.launches != before:
         raise AssertionError("flash_attention launched on a refused shape")
+
+
+def check_flash_split_one_launch(kmod, gen) -> None:
+    """A call on the split-head-dim route is one launch of that kernel: at
+    D = 320 and 296 (rows of whole 16-byte chunks) q, k and v are read in
+    place, so the output is the call's only allocation; at D = 300 they
+    are copied zero-padded to width 320 (three more)."""
+    for d, want_allocs in ((320, 1), (296, 1), (300, 4)):
+        q, k, v = (torch.randn((2, 8, 256, d), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        y, launched, allocs, nbytes = count_call(
+            lambda: kmod.flash_attention(q, k, v, causal=True),
+            [lambda: kmod.launches, lambda: kmod.launches_by_kernel["split"]])
+        if launched != (1, 1) or allocs != want_allocs:
+            raise AssertionError(f"flash_attention D={d}: {launched} launches "
+                                 f"(all, split), {allocs} allocations of "
+                                 f"{nbytes} B for a {tuple(y.shape)} output")
+        log(f"flash_attention D={d} bf16: one split-kernel launch, {allocs} "
+            f"allocation(s), {nbytes} B")
 
 
 # (kernel, check, keyword arguments), in the order phase 2 runs them

@@ -45,9 +45,10 @@ SIGNATURES = {
                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                _I, _P],
     "fake_quant_launch": [_P, _P, _I, _L, _P, _P, _F, _P],
-    "fake_quant_per_channel_launch": [_P, _P, _I, _L, _L, _L, _P, _P, _F, _P],
+    "fake_quant_per_channel_launch": [_P, _P, _I, _L, _L, _L, _P, _P, _F, _I,
+                                      _I, _I, _I, _I, _I, _P],
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                               _I, _F, _P],
+                               _I, _I, _F, _P],
 }
 
 

@@ -59,10 +59,25 @@
 // W = 256, where two stages do not fit), rows padded by 16 bytes against
 // bank conflicts; the same widths, zero columns and causal schedule.
 //
-// D > 256, any of the three dtypes (flash_fwd_wide_kernel): CUDA-core
-// FMAs, one block per (batch·head, 64-query tile, 128-column slab of O);
-// S = Q K^T is formed over the full D in 64-column chunks staged as fp32,
-// so every slab recomputes it. No configuration has such a head dim.
+// bf16 / fp16 at 256 < D <= 512 (flash_fwd_split_kernel): the same
+// warp-specialised wgmma/TMA design with the head dim split between the
+// two consumer warpgroups (each owns half of Q, K, V and O's columns for
+// the same 64 query rows; the two partial scores are added through shared
+// memory). It runs at W = 320, 384, 448 or 512, the least >= D, so each
+// half is whole 32-column swizzle blocks; q, k and v are read in place
+// under the same rule as up to 256, and the TMA zero-fills the columns
+// from their row length up to W.
+//
+// fp32 at 256 < D <= 512 (flash_fwd_f32_wide_kernel): CUDA-core FMAs,
+// Q staged once over the full D, K and V streamed in 64 x 64 chunks
+// through two cp.async slots; a block takes a 128-column slab of O (S
+// formed again per slab) while the grid is small, and all of O's columns
+// (S formed once) once it has two blocks an SM without slabs.
+//
+// Past D = 512, any dtype (flash_fwd_wide_kernel): CUDA-core FMAs, one
+// block per (batch·head, 64-query tile, 128-column slab of O); S = Q K^T
+// is formed over the full D in 64-column chunks staged as fp32, so every
+// slab recomputes it. No configuration has a head dim past 256.
 #include <cuda.h>
 #include <type_traits>
 
@@ -328,7 +343,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// Head dims above 256, any dtype: CUDA cores, no width to pad to. A block
+// Head dims above 512, any dtype: CUDA cores, no width to pad to. A block
 // owns (batch·head, 64-query tile, a slab of FW_SLAB output columns); it
 // forms S = Q K^T over the full D in chunks of FW_DK columns staged as
 // fp32 through shared memory, runs the same online softmax as the fp32
@@ -494,6 +509,223 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// fp32, 256 < D <= 512: CUDA cores (the tensor cores would take fp32 only
+// as TF32). A block owns (batch·head, 64-query tile, a slab of SW output
+// columns); Q is staged once, over the full D; each KV tile's K (for S
+// over the full D) and V (for the slab) stream through two shared-memory
+// slots of 64 x 64 floats by cp.async, the next chunk loading while this
+// one is used. SW = 128 gives ceil(D / 128) slabs, each forming S again,
+// for parallelism on small grids; SW = D rounded up to 128 forms S once,
+// where the grid has blocks enough without slabs (the launcher decides).
+// Thread (rg, cg) = (tid / 16, tid % 16) owns rows 4rg..4rg+3, scores of
+// keys cg + 16j, and output columns 64c + 4cg .. +3 of each 64-column
+// chunk c of the slab.
+// ---------------------------------------------------------------------------
+
+constexpr int FX_CH = 64;                  // rows and columns of a streamed chunk
+constexpr int FX_CLD = FX_CH + 4;          // its padded smem row (floats)
+constexpr int FX_MAX_D = 512;             // the widest head its launcher takes
+
+constexpr size_t fx_smem_bytes(int dp) {
+  return ((size_t)FA_BQ * (dp + 4) + 3 * (size_t)FX_CH * FX_CLD) * sizeof(float);
+}
+
+// 64 rows from row0 x 64 columns from col0 of a (nrows, D) fp32 matrix
+// into a (64, FX_CLD) smem chunk, zero past nrows and D: 16-byte copies
+// when D % 4 == 0 (the rows are then 16-byte aligned), else 4-byte ones.
+__device__ __forceinline__ void fx_load_chunk(float* sm, const float* __restrict__ g,
+                                              int row0, int nrows, int col0, int D,
+                                              bool vec, int ld_sm = FX_CLD) {
+  if (vec) {
+    constexpr int cpr = FX_CH / 4;
+    for (int i = threadIdx.x; i < FA_BQ * cpr; i += FA_THREADS) {
+      const int r = i / cpr, cc = (i % cpr) * 4;
+      const bool valid = row0 + r < nrows && col0 + cc < D;
+      const float* src = g + (valid ? (long long)(row0 + r) * D + col0 + cc : 0);
+      cp_async16(sm + r * ld_sm + cc, src, valid);
+    }
+  } else {
+    for (int i = threadIdx.x; i < FA_BQ * FX_CH; i += FA_THREADS) {
+      const int r = i / FX_CH, cc = i % FX_CH;
+      const bool valid = row0 + r < nrows && col0 + cc < D;
+      const float* src = g + (valid ? (long long)(row0 + r) * D + col0 + cc : 0);
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                       smem_u32(sm + r * ld_sm + cc)),
+                   "l"(src), "r"(valid ? 4 : 0));
+    }
+  }
+}
+
+template <int SW>
+__global__ void __launch_bounds__(FA_THREADS, 1)
+flash_fwd_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ o, int S,
+                          int Tk, int D, int causal, float scale, int vec) {
+  constexpr int NVC = SW / FX_CH;          // V chunks a KV tile (the slab's)
+  const int dp = (D + FX_CH - 1) / FX_CH * FX_CH;
+  const int nkc = dp / FX_CH;              // K chunks a KV tile
+  const int qld = dp + 4;
+  extern __shared__ __align__(16) unsigned char fa_smem[];
+  float* sQ = reinterpret_cast<float*>(fa_smem);
+  float* sC = sQ + FA_BQ * qld;             // two chunk slots
+  float* sP = sC + 2 * FX_CH * FX_CLD;
+
+  const int bh = blockIdx.x;
+  const int q0 = query_tile(causal) * FA_BQ;
+  const int c0 = blockIdx.z * SW;
+  const float* qb = q + (long long)bh * S * D;
+  const float* kb = k + (long long)bh * Tk * D;
+  const float* vb = v + (long long)bh * Tk * D;
+  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
+  const int off = Tk - S;                  // bottom-right causal alignment
+  int kv_end = Tk;
+  if (causal) kv_end = min(Tk, min(q0 + FA_BQ, S) + off);
+  const int ntiles = (kv_end + FA_BKV - 1) / FA_BKV;
+  const int per_tile = nkc + NVC;          // chunks a KV tile: K over D, then V
+  const int nchunks = ntiles * per_tile;
+
+  // chunk g of the stream into slot g & 1
+  auto load = [&](int g) {
+    const int it = g / per_tile, c = g % per_tile;
+    float* dst = sC + (g & 1) * FX_CH * FX_CLD;
+    if (c < nkc)
+      fx_load_chunk(dst, kb, it * FA_BKV, Tk, c * FX_CH, D, vec);
+    else
+      fx_load_chunk(dst, vb, it * FA_BKV, Tk, c0 + (c - nkc) * FX_CH, D, vec);
+  };
+  // Q once, over the full D, with the first chunk
+  for (int c = 0; c < nkc; ++c)
+    fx_load_chunk(sQ + c * FX_CH, qb, q0, S, c * FX_CH, D, vec, qld);
+  if (nchunks > 0) load(0);
+  cp_async_commit();
+
+  float m[4], l[4], acc[4][NVC * 4], sc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = FA_NEG;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NVC * 4; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int g = 0; g < nchunks; ++g) {
+    if (g + 1 < nchunks) {
+      load(g + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* ch = sC + (g & 1) * FX_CH * FX_CLD;
+    const int it = g / per_tile, c = g % per_tile;
+    if (c == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+    }
+    if (c < nkc) {
+      // scores of rows 4rg+i against keys cg+16j over this chunk's columns
+      const int d0 = c * FX_CH;
+#pragma unroll 4
+      for (int dd = 0; dd < FX_CH; dd += 4) {
+        float qv[4][4], kv[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) load_vals<4>(sQ + (rg * 4 + i) * qld + d0 + dd, qv[i]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) load_vals<4>(ch + (cg + 16 * j) * FX_CLD + dd, kv[j]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sc[i][j] = fmaf(qv[i][e], kv[j][e], sc[i][j]);
+      }
+      if (c == nkc - 1) {
+        // online softmax; P into smem (its readers are behind the next
+        // chunk's barrier)
+        const int kv0 = it * FA_BKV;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int qp = q0 + rg * 4 + i;
+          bool ok[4];
+          float mx = FA_NEG;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int kp = kv0 + cg + 16 * j;
+            ok[j] = kp < Tk && (!causal || kp <= qp + off);
+            sc[i][j] = ok[j] ? sc[i][j] * scale : FA_NEG;
+            mx = fmaxf(mx, sc[i][j]);
+          }
+          mx = half_warp_max(mx);
+          const float mn = fmaxf(m[i], mx);
+          const float alpha = expf(m[i] - mn);
+          float rs = 0.f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float p = ok[j] ? expf(sc[i][j] - mn) : 0.f;
+            rs += p;
+            sP[(rg * 4 + i) * FA_PLD + cg + 16 * j] = p;
+          }
+          rs = half_warp_sum(rs);
+          l[i] = l[i] * alpha + rs;
+          m[i] = mn;
+#pragma unroll
+          for (int cc = 0; cc < NVC * 4; ++cc) acc[i][cc] *= alpha;
+        }
+      }
+    } else {
+      // acc += P · V over the tile's 64 keys, in key order, for this
+      // chunk's 4 columns of the thread (a branch a chunk keeps the
+      // accumulators' indices constant)
+      const int vc = c - nkc;
+#pragma unroll
+      for (int vi = 0; vi < NVC; ++vi) {
+        if (vi != vc) continue;
+#pragma unroll 2
+        for (int j0 = 0; j0 < FA_BKV; j0 += 4) {
+          float4 pv[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            pv[i] = *reinterpret_cast<const float4*>(sP + (rg * 4 + i) * FA_PLD + j0);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const float4 vv =
+                *reinterpret_cast<const float4*>(ch + (j0 + jj) * FX_CLD + cg * 4);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float p = jj == 0 ? pv[i].x : jj == 1 ? pv[i].y : jj == 2 ? pv[i].z : pv[i].w;
+              acc[i][vi * 4 + 0] = fmaf(p, vv.x, acc[i][vi * 4 + 0]);
+              acc[i][vi * 4 + 1] = fmaf(p, vv.y, acc[i][vi * 4 + 1]);
+              acc[i][vi * 4 + 2] = fmaf(p, vv.z, acc[i][vi * 4 + 2]);
+              acc[i][vi * 4 + 3] = fmaf(p, vv.w, acc[i][vi * 4 + 3]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();                       // slot g & 1 is loaded again at g + 2
+  }
+  cp_async_wait<0>();                      // Q's copies when there was no chunk
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qp = q0 + rg * 4 + i;
+    if (qp >= S) continue;
+    const float den = fmaxf(l[i], 1e-30f);
+    float* orow = o + ((long long)bh * S + qp) * D + c0;
+#pragma unroll
+    for (int vi = 0; vi < NVC; ++vi)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = vi * FX_CH + cg * 4 + e;
+        if (c0 + col < D) orow[col] = acc[i][vi * 4 + e] / den;
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // bf16 / fp16: warp-specialised wgmma with a TMA-fed ring.
 // ---------------------------------------------------------------------------
 
@@ -612,13 +844,14 @@ struct WorkTile {
   int bh, q0, ntiles;
 };
 __device__ __forceinline__ WorkTile work_tile(int w, int bh_count, int nq, int S,
-                                              int Tk, int causal, int bkv) {
+                                              int Tk, int causal, int bkv,
+                                              int bq = WG_BQ) {
   const int rank = w / bh_count;
   WorkTile t;
   t.bh = w - rank * bh_count;
-  t.q0 = (causal ? nq - 1 - rank : rank) * WG_BQ;
+  t.q0 = (causal ? nq - 1 - rank : rank) * bq;
   int kv_end = Tk;
-  if (causal) kv_end = min(Tk, min(t.q0 + WG_BQ, S) + Tk - S);
+  if (causal) kv_end = min(Tk, min(t.q0 + bq, S) + Tk - S);
   t.ntiles = (kv_end + bkv - 1) / bkv;
   return t;
 }
@@ -917,6 +1150,360 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 / fp16, 256 < D <= 512: the head dim split between two warpgroups.
+// One warpgroup cannot hold a 64-row O tile this wide in registers (256
+// fp32 a thread at D = 512), so both consumer warpgroups take the same 64
+// query rows and warpgroup w owns columns [w·W/2, (w+1)·W/2) of Q, K, V
+// and O. Each forms its partial scores S_w = Q_w K_w^T (wgmma, both from
+// shared memory, K-depth W/2, N = 32 keys); the two partials meet in
+// shared memory behind a named barrier and both warpgroups take S = S_0 +
+// S_1 (one IEEE add, the same bits on both sides), run the same online
+// softmax and accumulate only their half, O_w += P V_w (rs, N = W/2).
+// S is formed once, and each output row is still computed by one CTA in
+// key order. Persistent CTAs walk (batch·head, 64-query) work tiles,
+// causal ones heaviest first; in the producer warpgroup one thread loads
+// each tile's Q and its K tiles and another its V tiles, by TMA into
+// 2-stage rings, so a K stage refills as soon as its scores are done. A
+// warp whose rows kept their running max skips the rescale of O.
+// Columns are in 32-column blocks (64-byte swizzle), so a half (160, 192,
+// 224 or 256 columns) starts on a block. Shared memory at W = 512: Q 64
+// KB, K and V 2 x 32 KB each, the score exchange 2 x 16 KB: 224 KB.
+// What bounds it: neither the loads nor the products (removing either
+// leaves most of the time on the prefill shapes) but the chain each
+// 32-key tile runs with both warpgroups in step — wait, products,
+// exchange, softmax, rescale — with two warps a scheduler to hide it.
+// 64-key tiles would halve that chain a key, but fit only one stage of
+// K and V and spill at W = 512 (slower on every row measured).
+// ---------------------------------------------------------------------------
+
+constexpr int WS_BQ = 64;                  // query rows a work tile (the wgmma M)
+constexpr int WS_BKV = 32;                 // keys a K/V tile (the wgmma N of S)
+constexpr int WS_CB = 32;                  // columns a swizzle block
+constexpr int WS_ROWB = WS_CB * 2;         // bytes of a row in a block
+constexpr uint32_t WS_LAYOUT = 2;          // wgmma: 64-byte swizzle
+
+template <int W>
+struct WsCfg {
+  static_assert(W % (2 * WS_CB) == 0, "kernel width");
+  static constexpr int HW = W / 2;         // columns a warpgroup owns
+  static constexpr int NCB = W / WS_CB;
+  static constexpr int Q_BYTES = WS_BQ * W * 2;
+  static constexpr int KV_BYTES = WS_BKV * W * 2;  // one of K, V
+  // two exchange buffers of both warpgroups' partial scores, WS_BKV / 2
+  // floats a thread
+  static constexpr int X_BYTES = 2 * 2 * 128 * (WS_BKV / 2) * 4;
+  static constexpr int TILE_BYTES = Q_BYTES + WG_STAGES * 2 * KV_BYTES + X_BYTES;
+  static constexpr size_t SMEM = TILE_BYTES + 128 + 1024;
+  static_assert(SMEM <= SMEM_LIMIT, "shared memory");
+};
+
+template <typename T, int W>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_fwd_split_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, T* __restrict__ o,
+                       int bh_count, int S, int Tk, int D, int causal,
+                       float scale_log2) {
+  using C = WsCfg<W>;
+  constexpr int HW = C::HW;
+  constexpr int BKV = WS_BKV;
+  constexpr int NST = WG_STAGES;
+  constexpr int NS = BKV / 2;            // score accumulators per thread
+  constexpr int NG = NS / 4;             // ... as float4s
+  constexpr int NO = HW / 2;             // output accumulators per thread
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  unsigned char* smem = wg_smem + ((1024 - (smem_u32(wg_smem) & 1023)) & 1023);
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sK = sQ + WS_BQ * W;                // NST tiles of BKV x W
+  T* sV = sK + NST * BKV * W;
+  // [buffer][warpgroup][NG float4 a thread][128 threads]
+  float4* sX = reinterpret_cast<float4*>(sV + NST * BKV * W);
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(smem + C::TILE_BYTES);
+  uint64_t* empty_k = full_k + NST;
+  uint64_t* full_v = empty_k + NST;
+  uint64_t* empty_v = full_v + NST;
+  uint64_t* full_q = empty_v + NST;
+  uint64_t* empty_q = full_q + 1;
+
+  const int nq = (S + WS_BQ - 1) / WS_BQ;
+  const int total = bh_count * nq;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NST; ++i) {
+      mbar_init(&full_k[i], 1);
+      mbar_init(&empty_k[i], WG_CONSUMER_WARPS);
+      mbar_init(&full_v[i], 1);
+      mbar_init(&empty_v[i], WG_CONSUMER_WARPS);
+    }
+    mbar_init(full_q, 1);
+    mbar_init(empty_q, WG_CONSUMER_WARPS);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producers: one thread loads each work tile's Q and its K
+    // tiles, another its V tiles, so a K stage refills as soon as its
+    // scores are done, whatever the V ring waits on ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    const bool qk = threadIdx.x == 256;
+    if (qk || threadIdx.x == 288) {
+      int kv = 0;                        // K/V tiles loaded so far: the ring position
+      int n = 0;
+      for (int w = blockIdx.x; w < total; w += gridDim.x, ++n) {
+        const WorkTile tile = work_tile(w, bh_count, nq, S, Tk, causal, BKV, WS_BQ);
+        if (qk) {
+          if (n > 0) mbar_wait(empty_q, (n - 1) & 1);
+          mbar_expect_tx(full_q, C::Q_BYTES);
+          for (int cb = 0; cb < C::NCB; ++cb)
+            tma_load(sQ + cb * WS_BQ * WS_CB, &tq, full_q, cb * WS_CB, tile.q0, tile.bh);
+        }
+        const CUtensorMap* map = qk ? &tk : &tv;
+        T* ring = qk ? sK : sV;
+        uint64_t* full = qk ? full_k : full_v;
+        uint64_t* empty = qk ? empty_k : empty_v;
+        for (int it = 0; it < tile.ntiles; ++it, ++kv) {
+          const int st = kv % NST;
+          T* dst = ring + st * BKV * W;
+          mbar_wait(&empty[st], ((kv / NST) & 1) ^ 1);
+          mbar_expect_tx(&full[st], C::KV_BYTES);
+          for (int cb = 0; cb < C::NCB; ++cb)
+            tma_load(dst + cb * BKV * WS_CB, map, &full[st], cb * WS_CB, it * BKV,
+                     tile.bh);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: both take rows q0 .. q0 + 63; warpgroup wg owns
+    // columns c0 .. c0 + HW - 1 ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int r0 = 16 * warp + lane / 4;             // rows r0 and r0 + 8 of the tile
+    const int cq = (lane % 4) * 2;                   // first of the two columns it holds
+    const int c0 = wg * HW;
+    const int off = Tk - S;                          // bottom-right causal alignment
+    int qp0 = 0, qp1 = 0, q_first = 0;               // of the current work tile
+
+    float o_acc[NO];
+    float s[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) s[i] = 0.f;
+    uint32_t pa[BKV / 16][4];                        // P of the previous tile, A fragments
+    float m0, m1, l0, l1;
+    const uint32_t q_base = smem_u32(sQ), k_base = smem_u32(sK), v_base = smem_u32(sV);
+    constexpr uint32_t SBO = 8 * WS_ROWB;            // next 8 rows
+
+    // S_w = Q_w K_w^T over this warpgroup's HW / 16 k-steps
+    auto gemm_s = [&](int st) {
+      const uint32_t k_addr = k_base + st * C::KV_BYTES;
+#pragma unroll
+      for (int ks = 0; ks < HW / 16; ++ks) {
+        const int col = c0 + 16 * ks;
+        const int cb = col / WS_CB, kin = (col % WS_CB) / 16;
+        const uint64_t da = wg_desc(q_base + cb * WS_BQ * WS_ROWB + kin * 32, 16, SBO,
+                                    WS_LAYOUT);
+        const uint64_t db = wg_desc(k_addr + cb * BKV * WS_ROWB + kin * 32, 16, SBO,
+                                    WS_LAYOUT);
+        Wgmma<T, BKV>::ss(s, da, db, ks > 0);
+      }
+    };
+    // O_w += P V_w: P from registers, V_w MN-major from this warpgroup's
+    // first column block (column blocks LBO apart, 8-key groups SBO apart)
+    auto gemm_o = [&](int st) {
+      const uint32_t v_addr = v_base + st * C::KV_BYTES + (c0 / WS_CB) * BKV * WS_ROWB;
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {
+        const uint64_t db = wg_desc(v_addr + kk * 16 * WS_ROWB, BKV * WS_ROWB, SBO,
+                                    WS_LAYOUT);
+        Wgmma<T, HW>::rs(o_acc, pa[kk], db, 1);
+      }
+    };
+    // S = S_0 + S_1: this warpgroup's partial out to buffer xn & 1, the
+    // other's in. Thread t of either warpgroup holds the same (row, key)
+    // entries, so the exchange is thread to thread; one named barrier a
+    // tile is enough with two buffers (a buffer is written again two tiles
+    // later, after every thread has passed the barrier of the tile
+    // between).
+    int xn = 0;                                      // exchanges so far
+    auto exchange = [&]() {
+      float4* mine = sX + ((xn & 1) * 2 + wg) * NG * 128 + t;
+      const float4* theirs = sX + ((xn & 1) * 2 + (wg ^ 1)) * NG * 128 + t;
+#pragma unroll
+      for (int g = 0; g < NG; ++g)
+        mine[g * 128] = make_float4(s[4 * g], s[4 * g + 1], s[4 * g + 2], s[4 * g + 3]);
+      named_sync(1);
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        const float4 u = theirs[g * 128];
+        const float v4[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[4 * g + e] = wg == 0 ? __fadd_rn(s[4 * g + e], v4[e])
+                                 : __fadd_rn(v4[e], s[4 * g + e]);
+      }
+      ++xn;
+    };
+    // The online softmax of K/V tile it on s, as in the kernel above.
+    auto softmax = [&](int it, float& al0, float& al1) {
+      const int kv0 = it * BKV;
+      if (kv0 + BKV > Tk || (causal && kv0 + BKV - 1 > q_first + off)) {
+#pragma unroll
+        for (int i = 0; i < NS; ++i) {
+          const int kp = kv0 + (i / 4) * 8 + cq + (i & 1);
+          const int qp = (i & 2) ? qp1 : qp0;
+          if (kp >= Tk || (causal && kp > qp + off)) s[i] = -INFINITY;
+        }
+      }
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < NS; i += 4) {
+        mx0 = fmaxf(mx0, fmaxf(s[i], s[i + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[i + 2], s[i + 3]));
+      }
+      const float mn0 = fmaxf(m0, quad_max(mx0) * scale_log2);
+      const float mn1 = fmaxf(m1, quad_max(mx1) * scale_log2);
+      const float mb0 = mn0 == -INFINITY ? 0.f : mn0;  // a row with no key yet
+      const float mb1 = mn1 == -INFINITY ? 0.f : mn1;
+      al0 = ex2(m0 - mb0);
+      al1 = ex2(m1 - mb1);
+      m0 = mn0;
+      m1 = mn1;
+      float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < NS; i += 4) {
+        s[i] = ex2(fmaf(s[i], scale_log2, -mb0));
+        s[i + 1] = ex2(fmaf(s[i + 1], scale_log2, -mb0));
+        s[i + 2] = ex2(fmaf(s[i + 2], scale_log2, -mb1));
+        s[i + 3] = ex2(fmaf(s[i + 3], scale_log2, -mb1));
+        rs0 += s[i] + s[i + 1];
+        rs1 += s[i + 2] + s[i + 3];
+      }
+      l0 = l0 * al0 + rs0;
+      l1 = l1 * al1 + rs1;
+    };
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack2<T>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+    };
+    const auto release = [&](uint64_t* bar) {
+      if (lane == 0) mbar_arrive(bar);
+    };
+
+    int kv = 0;                          // K/V tiles consumed so far: the ring position
+    int n = 0;
+    for (int w = blockIdx.x; w < total; w += gridDim.x, ++n) {
+      const WorkTile tile = work_tile(w, bh_count, nq, S, Tk, causal, BKV, WS_BQ);
+      qp0 = tile.q0 + r0;
+      qp1 = qp0 + 8;
+      q_first = tile.q0;
+      m0 = m1 = -INFINITY;
+      l0 = l1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < NO; ++i) o_acc[i] = 0.f;
+
+      mbar_wait(full_q, n & 1);
+      if (tile.ntiles > 0) {
+        float al0, al1;
+        const int st0 = kv % NST;
+        mbar_wait(&full_k[st0], (kv / NST) & 1);
+        fence_regs(s);
+        fence_regs(o_acc);
+        wg_fence();
+        gemm_s(st0);
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(s);
+        release(&empty_k[st0]);
+        if (tile.ntiles == 1) release(empty_q);
+        exchange();
+        softmax(0, al0, al1);
+        pack_p();
+        // K/V tile it's S_w runs on the tensor cores beside tile it-1's
+        // O_w += P V_w, and tile it's exchange and softmax beside the rest
+        // of that P V
+        for (int it = 1; it < tile.ntiles; ++it) {
+          const int g = kv + it;
+          const int st = g % NST, pst = (g - 1) % NST;
+          mbar_wait(&full_k[st], (g / NST) & 1);
+          mbar_wait(&full_v[pst], ((g - 1) / NST) & 1);
+          fence_regs(s);
+          fence_regs(o_acc);
+          wg_fence();
+          gemm_s(st);
+          wg_commit();
+          gemm_o(pst);
+          wg_commit();
+          wg_wait<1>();                // S_w of tile it
+          fence_regs(s);
+          release(&empty_k[st]);
+          if (it == tile.ntiles - 1) release(empty_q);
+          exchange();
+          softmax(it, al0, al1);
+          wg_wait<0>();                // P V_w of tile it - 1
+          fence_regs(o_acc);
+          release(&empty_v[pst]);
+          // a warp whose rows kept their running max skips the rescale
+          // (a multiply by 1 changes nothing)
+          if (__any_sync(0xffffffffu, al0 != 1.f || al1 != 1.f)) {
+#pragma unroll
+            for (int i = 0; i < NO; i += 4) {
+              o_acc[i] *= al0;
+              o_acc[i + 1] *= al0;
+              o_acc[i + 2] *= al1;
+              o_acc[i + 3] *= al1;
+            }
+          }
+          pack_p();
+        }
+        const int g = kv + tile.ntiles - 1;
+        const int lst = g % NST;
+        mbar_wait(&full_v[lst], (g / NST) & 1);
+        fence_regs(o_acc);
+        wg_fence();
+        gemm_o(lst);
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(o_acc);
+        release(&empty_v[lst]);
+        kv += tile.ntiles;
+      } else {
+        release(empty_q);
+      }
+
+      const float d0 = 1.f / fmaxf(quad_sum(l0), 1e-30f);
+      const float d1 = 1.f / fmaxf(quad_sum(l1), 1e-30f);
+      T* o0 = o + ((long long)tile.bh * S + qp0) * D;
+      T* o1 = o + ((long long)tile.bh * S + qp1) * D;
+      const bool pairs = (D % 2) == 0;
+#pragma unroll
+      for (int j = 0; j < HW / 8; ++j) {
+        const int col = c0 + j * 8 + cq;
+        if (col >= D) continue;
+        const float a = o_acc[4 * j] * d0, b = o_acc[4 * j + 1] * d0;
+        const float c = o_acc[4 * j + 2] * d1, e = o_acc[4 * j + 3] * d1;
+        if (pairs) {
+          if (qp0 < S) *reinterpret_cast<uint32_t*>(o0 + col) = pack2<T>(a, b);
+          if (qp1 < S) *reinterpret_cast<uint32_t*>(o1 + col) = pack2<T>(c, e);
+        } else {
+          if (qp0 < S) {
+            o0[col] = from_f<T>(a);
+            if (col + 1 < D) o0[col + 1] = from_f<T>(b);
+          }
+          if (qp1 < S) {
+            o1[col] = from_f<T>(c);
+            if (col + 1 < D) o1[col + 1] = from_f<T>(e);
+          }
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -1016,8 +1603,73 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh, int s,
     return launch_wgmma<T, W>(q, k, v, o, bh, s, t, d, ld, causal, scale, st);
 }
 
-// D > 256: q, k, v contiguous (bh, rows, d); one block per (batch·head,
-// 64-query tile, 128-column slab of O)
+// 16-bit, 256 < width <= 512: the split-head-dim kernel at width W (a
+// multiple of 64); the TMA zero-fills the columns from ld up to W.
+template <typename T, int W>
+int launch_split(const void* q, const void* k, const void* v, void* o, int bh,
+                 int s, int t, int d, int ld, int causal, float scale,
+                 cudaStream_t st) {
+  using C = WsCfg<W>;
+  constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, q, bf16, bh, s, ld, WS_CB, WS_BQ) ||
+      !make_map(&mk, k, bf16, bh, t, ld, WS_CB, WS_BKV) ||
+      !make_map(&mv, v, bf16, bh, t, ld, WS_CB, WS_BKV))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(flash_fwd_split_kernel<T, W>, C::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+          cudaSuccess)
+    return (int)err;
+  const long long work = (long long)bh * ((s + WS_BQ - 1) / WS_BQ);
+  const int grid = (int)(work < sms ? work : sms);
+  flash_fwd_split_kernel<T, W><<<grid, WG_THREADS, C::SMEM, st>>>(
+      mq, mk, mv, static_cast<T*>(o), bh, s, t, d, causal, scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+// fp32, 256 < D <= 512: slabs of 128 columns while the grid has fewer
+// (batch·head, query tile) blocks than two an SM, else one slab of all
+// columns (S formed once)
+template <int SW>
+int launch_f32_wide_sw(const float* q, const float* k, const float* v, float* o,
+                       int bh, int s, int t, int d, int causal, float scale,
+                       cudaStream_t st) {
+  const size_t smem = fx_smem_bytes((d + FX_CH - 1) / FX_CH * FX_CH);
+  cudaError_t err = allow_smem(flash_fwd_f32_wide_kernel<SW>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(bh, (s + FA_BQ - 1) / FA_BQ, (d + SW - 1) / SW);
+  const int vec = d % 4 == 0;
+  flash_fwd_f32_wide_kernel<SW><<<grid, FA_THREADS, smem, st>>>(q, k, v, o, s, t, d,
+                                                                causal, scale, vec);
+  return (int)cudaGetLastError();
+}
+
+int launch_f32_wide(const void* q, const void* k, const void* v, void* o, int bh,
+                    int s, int t, int d, int causal, float scale, cudaStream_t st) {
+  int dev = 0, sms = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+          cudaSuccess)
+    return (int)err;
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  float* of = static_cast<float*>(o);
+  const long long blocks = (long long)bh * ((s + FA_BQ - 1) / FA_BQ);
+  if (blocks < 2LL * sms)
+    return launch_f32_wide_sw<128>(qf, kf, vf, of, bh, s, t, d, causal, scale, st);
+  if (d <= 384)
+    return launch_f32_wide_sw<384>(qf, kf, vf, of, bh, s, t, d, causal, scale, st);
+  return launch_f32_wide_sw<512>(qf, kf, vf, of, bh, s, t, d, causal, scale, st);
+}
+
+// D > 256 outside the split and fp32 kernels' range: q, k, v contiguous
+// (bh, rows, d); one block per (batch·head, 64-query tile, 128-column slab
+// of O)
 template <typename T>
 int launch_wide(const void* q, const void* k, const void* v, void* o, int bh,
                 int s, int t, int d, int causal, float scale, cudaStream_t st) {
@@ -1030,37 +1682,74 @@ int launch_wide(const void* q, const void* k, const void* v, void* o, int bh,
   return (int)cudaGetLastError();
 }
 
+// the kernels, as kernels/flash_attention.py:KERNELS numbers them; the
+// wrapper picks one (kernel_for) and the launcher runs it or refuses
+enum Kernel { K_WGMMA = 0, K_SPLIT = 1, K_F32 = 2, K_F32_WIDE = 3, K_WIDE = 4 };
+
 template <typename T>
-int launch_w(const void* q, const void* k, const void* v, void* o, int bh, int s,
-             int t, int d, int ld, int width, int causal, float scale,
-             cudaStream_t st) {
-  if (width > 256) return launch_wide<T>(q, k, v, o, bh, s, t, d, causal, scale, st);
-  switch (width) {
-    case 32: return launch<T, 32>(q, k, v, o, bh, s, t, d, ld, causal, scale, st);
-    case 64: return launch<T, 64>(q, k, v, o, bh, s, t, d, ld, causal, scale, st);
-    case 96: return launch<T, 96>(q, k, v, o, bh, s, t, d, ld, causal, scale, st);
-    case 128: return launch<T, 128>(q, k, v, o, bh, s, t, d, ld, causal, scale, st);
-    case 256: return launch<T, 256>(q, k, v, o, bh, s, t, d, ld, causal, scale, st);
-    default: return (int)cudaErrorInvalidValue;
+int launch_k(const void* q, const void* k, const void* v, void* o, int kernel,
+             int bh, int s, int t, int d, int ld, int width, int causal,
+             float scale, cudaStream_t st) {
+  constexpr bool f32 = std::is_same<T, float>::value;
+  if ((kernel == K_WGMMA || kernel == K_F32 || kernel == K_SPLIT) &&
+      !(d <= ld && ld <= width))
+    return (int)cudaErrorInvalidValue;
+  switch (kernel) {
+    case K_WGMMA:
+    case K_F32:
+      if (f32 != (kernel == K_F32)) break;
+      switch (width) {
+        case 32: return launch<T, 32>(q, k, v, o, bh, s, t, d, ld, causal, scale, st);
+        case 64: return launch<T, 64>(q, k, v, o, bh, s, t, d, ld, causal, scale, st);
+        case 96: return launch<T, 96>(q, k, v, o, bh, s, t, d, ld, causal, scale, st);
+        case 128: return launch<T, 128>(q, k, v, o, bh, s, t, d, ld, causal, scale, st);
+        case 256: return launch<T, 256>(q, k, v, o, bh, s, t, d, ld, causal, scale, st);
+      }
+      break;
+    case K_SPLIT:
+      if constexpr (!f32) {
+        switch (width) {
+          case 320: return launch_split<T, 320>(q, k, v, o, bh, s, t, d, ld, causal, scale, st);
+          case 384: return launch_split<T, 384>(q, k, v, o, bh, s, t, d, ld, causal, scale, st);
+          case 448: return launch_split<T, 448>(q, k, v, o, bh, s, t, d, ld, causal, scale, st);
+          case 512: return launch_split<T, 512>(q, k, v, o, bh, s, t, d, ld, causal, scale, st);
+        }
+      }
+      break;
+    case K_F32_WIDE:
+      if constexpr (f32) {
+        if (ld == d && d <= FX_MAX_D)
+          return launch_f32_wide(q, k, v, o, bh, s, t, d, causal, scale, st);
+      }
+      break;
+    case K_WIDE:
+      if (ld == d) return launch_wide<T>(q, k, v, o, bh, s, t, d, causal, scale, st);
+      break;
   }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 fp32, 1 bf16, 2 fp16. q (bh, s, ld), k/v (bh, t, ld),
+// dtype: 0 fp32, 1 bf16, 2 fp16; kernel: a Kernel, run at a width it
+// takes, or the call is refused. q (bh, s, ld), k/v (bh, t, ld),
 // contiguous and 16-byte aligned, with d <= ld <= width valid columns
-// (zero past d when ld > d); o (bh, s, d). width in {32, 64, 96, 128,
-// 256}; ld * element size a multiple of 16 bytes. Or width = ld = d > 256:
-// the CUDA-core kernel for wide heads, in any of the three dtypes.
+// (zero past d when ld > d); o (bh, s, d). K_WGMMA (16-bit) and K_F32:
+// width in {32, 64, 96, 128, 256}; K_SPLIT (16-bit): width in {320, 384,
+// 448, 512}; on these ld * element size is a multiple of 16 bytes.
+// K_F32_WIDE (fp32, d <= 512) and K_WIDE (any dtype): ld = d, width unused.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int dtype,
-                                      int bh, int s, int t, int d, int ld,
-                                      int width, int causal, float scale,
-                                      void* stream) {
+                                      int kernel, int bh, int s, int t, int d,
+                                      int ld, int width, int causal,
+                                      float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch_w<__nv_bfloat16>(q, k, v, o, bh, s, t, d, ld, width, causal, scale, st);
+    return launch_k<__nv_bfloat16>(q, k, v, o, kernel, bh, s, t, d, ld, width,
+                                   causal, scale, st);
   if (dtype == 2)
-    return launch_w<__half>(q, k, v, o, bh, s, t, d, ld, width, causal, scale, st);
-  return launch_w<float>(q, k, v, o, bh, s, t, d, ld, width, causal, scale, st);
+    return launch_k<__half>(q, k, v, o, kernel, bh, s, t, d, ld, width, causal,
+                            scale, st);
+  return launch_k<float>(q, k, v, o, kernel, bh, s, t, d, ld, width, causal,
+                         scale, st);
 }

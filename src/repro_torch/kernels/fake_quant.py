@@ -7,21 +7,93 @@ x is read once and the output written once, 16 bytes a thread. Scale and
 zero point stay on the device (no host sync per call). Per channel, x is
 seen as (outer, C, inner), so the channel may be any axis; the TPU
 wrapper takes the last one only, and on a square weight with
-``channel_axis=0`` it applies the scales along the wrong axis. Both
-kernels equal the plain version (``ref.fake_quant``) bit for bit.
+``channel_axis=0`` it applies the scales along the wrong axis. The
+per-channel grid is channel-stationary: ``launch_plan`` picks the route
+(a thread owning a 16-byte column vector and walking rows for the last
+axis, whole runs of one channel for a long inner stride, the
+element-wise walk otherwise), so a thread makes each channel's grid
+once. Both kernels equal the plain version (``ref.fake_quant``) bit for
+bit.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+ROUTE_WALK, ROUTE_ROWS, ROUTE_RUNS = 0, 1, 2
+THREADS = 256                # a block of the per-channel kernels
+WALK_MAX_BLOCKS = 4096       # the walk's grid-stride loop
+# grid sizes, from a sweep on the H100 (256..4096 blocks): the rows route
+# gains from more rows a thread (its V grids made once), the runs route
+# from more runs in flight
+ROWS_TARGET_BLOCKS = 256
+RUNS_TARGET_BLOCKS = 2048
+RUN_LOADS = 4                # a runs thread's loads a run, where it can
+MAX_GRID_Y = 65535
+MIN_RUN_UNITS = 32           # a run takes at least a warp's worth of loads
 launches = 0                 # per-tensor kernel
 launches_per_channel = 0     # per-channel kernel
+
+
+class FqPlan(NamedTuple):
+    route: int                 # ROUTE_WALK, ROUTE_ROWS or ROUTE_RUNS
+    vec: bool                  # 16-byte vectors (else one element a load)
+    tx: int                    # threads a block along a row or run
+    ty: int                    # rows or runs a block takes at a time
+    blocks_x: int
+    blocks_y: int
+
+
+def _threads_for(units: int) -> int:
+    """Threads along a row: the least power of two >= units, from a warp
+    to a block."""
+    return min(THREADS, max(32, 1 << (units - 1).bit_length()))
+
+
+def _threads_for_run(units: int) -> int:
+    """Threads along a run: the greatest power of two with ``RUN_LOADS``
+    loads each, from a warp to a block."""
+    return min(THREADS, max(32, 1 << max(0, (units // RUN_LOADS).bit_length() - 1)))
+
+
+def launch_plan(shape, axis: int, dtype: torch.dtype,
+                aligned: bool = True) -> FqPlan:
+    """The per-channel kernel's route and launch sizes for x of ``shape``
+    with channels along ``axis``; ``aligned``: x and the output both start
+    on 16 bytes. The last axis (inner == 1) takes the rows route: a thread
+    owns one 16-byte column vector (or one channel, where a row is not a
+    whole number of 16-byte vectors or a pointer is unaligned) and walks
+    rows. An inner stride of at least ``MIN_RUN_UNITS`` loads takes the
+    runs route: whole runs of one channel. Anything else takes the
+    element-wise walk."""
+    shape = tuple(int(d) for d in shape)
+    axis %= len(shape)
+    n, c = math.prod(shape), shape[axis]
+    inner = math.prod(shape[axis + 1:])
+    v = 16 // torch.empty((), dtype=dtype).element_size()
+    if inner == 1:
+        vec = aligned and c % v == 0
+        units = c // v if vec else c
+        tx = _threads_for(units)
+        ty = THREADS // tx
+        bx = -(-units // tx)
+        by = min(-(-(n // c) // ty), max(1, ROWS_TARGET_BLOCKS // bx), MAX_GRID_Y)
+        return FqPlan(ROUTE_ROWS, vec, tx, ty, bx, by)
+    vec = aligned and inner % v == 0
+    units = inner // v if vec else inner
+    if units >= MIN_RUN_UNITS:
+        tx = _threads_for_run(units)
+        ty = THREADS // tx
+        return FqPlan(ROUTE_RUNS, vec, tx, ty,
+                      min(-(-(n // inner) // ty), RUNS_TARGET_BLOCKS), 1)
+    work = n // v + 16 if aligned else n
+    return FqPlan(ROUTE_WALK, aligned, THREADS, 1,
+                  max(1, min(WALK_MAX_BLOCKS, -(-work // THREADS))), 1)
 
 
 def channel_axis(x: torch.Tensor, scale: torch.Tensor,
@@ -72,9 +144,11 @@ def fake_quant(x: torch.Tensor, scale, zero_point, bits: int,
                        zp.reshape(1).contiguous(), lv)
     else:
         c = x.shape[axis]
+        plan = launch_plan(x.shape, axis, x.dtype,
+                           x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
         _launch_channel(x, out, c, math.prod(x.shape[axis + 1:]),
                         s.reshape(-1).expand(c).contiguous(),
-                        zp.reshape(-1).expand(c).contiguous(), lv)
+                        zp.reshape(-1).expand(c).contiguous(), lv, plan)
     return out
 
 
@@ -89,12 +163,14 @@ def _launch_tensor(x, out, s, zp, lv: float) -> None:
     launches += 1
 
 
-def _launch_channel(x, out, c: int, inner: int, s, zp, lv: float) -> None:
+def _launch_channel(x, out, c: int, inner: int, s, zp, lv: float,
+                    plan: FqPlan) -> None:
     global launches_per_channel
     from repro_torch.kernels import _build
 
     err = _build.lib().fake_quant_per_channel_launch(
         x.data_ptr(), out.data_ptr(), _DTYPES[x.dtype], x.numel(), c, inner,
-        s.data_ptr(), zp.data_ptr(), lv, _build.stream_ptr(x.device))
+        s.data_ptr(), zp.data_ptr(), lv, plan.route, int(plan.vec), plan.tx,
+        plan.ty, plan.blocks_x, plan.blocks_y, _build.stream_ptr(x.device))
     _build.check(err, "fake_quant_per_channel")
     launches_per_channel += 1

@@ -2,7 +2,9 @@
 repro.kernels.ref and the Pallas kernels in interpret mode; the CUDA
 kernels themselves are held against the same plain versions on the card
 by chip_smoke.py. Also the qmm kernel's launch plan, a pure function, at
-every shape chip_smoke.py gives the kernel."""
+every shape chip_smoke.py gives the kernel, and the paged-attention and
+per-channel fake-quant launch plans walked with their kernels' own index
+arithmetic."""
 import importlib.util
 from pathlib import Path
 
@@ -18,7 +20,7 @@ from repro.kernels.paged_attention import paged_attention_pallas
 from repro.kernels.qmm import qmm_pallas
 from repro_torch import qtensor as tq
 from repro_torch.kernels import ef_sqnorm as kef, ops, qmm as kqmm, ref as tref
-from repro_torch.kernels import paged_attention as kpa
+from repro_torch.kernels import fake_quant as kfq, paged_attention as kpa
 
 
 @pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
@@ -269,6 +271,134 @@ def test_paged_attention_launch_plan_owns_every_page_once(np_, page, dh, g):
         assert plan.pages_per_warp == min(32, -(-np_ // 64))
         if np_ <= 8:
             assert plan.ctas == 1
+
+
+def _fq_walk(plan, shape, axis, esize):
+    """The (element, channel) pairs the per-channel fake-quant kernel of
+    ``plan``'s route visits on x of ``shape``, with its own index
+    arithmetic (``fq_rows_kernel``'s four-row batches and tail,
+    ``fq_runs_kernel``'s incremental channel, ``fq_channel_kernel``'s
+    ``Chan`` walk)."""
+    axis %= len(shape)
+    n, c = int(np.prod(shape)), shape[axis]
+    inner = int(np.prod(shape[axis + 1:]))
+    v = 16 // esize if plan.vec else 1
+    elems, chans = [], []
+    if plan.route == kfq.ROUTE_ROWS:
+        units, rows = c // v, n // c
+        step = plan.blocks_y * plan.ty
+        for u in range(plan.blocks_x * plan.tx):
+            if u >= units:
+                continue
+            for r0 in range(step):
+                r, seen = r0, []
+                while r + 3 * step < rows:
+                    seen += [r, r + step, r + 2 * step, r + 3 * step]
+                    r += 4 * step
+                while r < rows:
+                    seen.append(r)
+                    r += step
+                for r in seen:
+                    elems.append(r * c + u * v + np.arange(v))
+                    chans.append(u * v + np.arange(v))
+    elif plan.route == kfq.ROUTE_RUNS:
+        units, runs = inner // v, n // inner
+        step = plan.blocks_x * plan.ty
+        for ru0 in range(step):
+            if ru0 >= runs:
+                continue
+            ch, ru = ru0 % c, ru0
+            while ru < runs:
+                for tx in range(plan.tx):
+                    for i in range(tx, units, plan.tx):
+                        elems.append(ru * inner + i * v + np.arange(v))
+                        chans.append(np.full(v, ch))
+                ch += step % c
+                ch -= c if ch >= c else 0
+                ru += step
+    else:
+        # a grid-stride loop: every vector once, whatever the grid
+        head = 0
+        if plan.vec:
+            nv = n // v
+            for i in range(nv):
+                q, r = divmod(i * v, inner)
+                ch = q % c
+                for j in range(v):
+                    elems.append(np.array([i * v + j]))
+                    chans.append(np.array([ch]))
+                    r += 1
+                    if r == inner:
+                        r, ch = 0, (ch + 1) % c
+            head = nv * v
+        for i in range(head, n):
+            elems.append(np.array([i]))
+            chans.append(np.array([(i // inner) % c]))
+    return np.concatenate(elems), np.concatenate(chans), n, inner, c
+
+
+# (shape, axis, dtype, aligned, route): the last axis in 16-byte vectors,
+# in one channel a thread (a ragged row, an unaligned pointer); a long
+# inner stride (axis 0, a middle axis) in vectors and not; a short one
+FQ_PLAN_SHAPES = [
+    ((37, 64), -1, torch.bfloat16, True, kfq.ROUTE_ROWS),
+    ((9, 1000), -1, torch.float32, True, kfq.ROUTE_ROWS),
+    ((300, 257), -1, torch.bfloat16, True, kfq.ROUTE_ROWS),
+    ((37, 64), -1, torch.float16, False, kfq.ROUTE_ROWS),
+    ((32, 2048), 0, torch.bfloat16, True, kfq.ROUTE_RUNS),
+    ((40, 300), 0, torch.bfloat16, True, kfq.ROUTE_RUNS),
+    ((3, 96, 512), 1, torch.float32, True, kfq.ROUTE_RUNS),
+    ((16, 1024), 0, torch.bfloat16, False, kfq.ROUTE_RUNS),
+    ((64, 96, 12), 1, torch.bfloat16, True, kfq.ROUTE_WALK),
+    ((7, 9, 3), 1, torch.float32, False, kfq.ROUTE_WALK),
+]
+
+
+@pytest.mark.parametrize("shape,axis,dtype,aligned,route", FQ_PLAN_SHAPES)
+def test_fake_quant_launch_plan_visits_every_element_once(shape, axis, dtype,
+                                                          aligned, route):
+    """``fake_quant.launch_plan``'s route for the last axis, axis 0, a
+    middle axis, ragged rows and unaligned pointers, walked with the
+    kernel's own index arithmetic: every element of x visited exactly
+    once, with its own channel (i // inner) % C; blocks of 256 threads,
+    a grid the card takes; 16-byte vectors only where a row or run is a
+    whole number of them and both pointers are aligned."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    plan = kfq.launch_plan(shape, axis, dtype, aligned)
+    assert plan.route == route
+    assert plan.tx * plan.ty == kfq.THREADS and plan.tx % 32 == 0
+    assert 1 <= plan.blocks_y <= kfq.MAX_GRID_Y and plan.blocks_x >= 1
+    elems, chans, n, inner, c = _fq_walk(plan, shape, axis, esize)
+    assert np.array_equal(np.sort(elems), np.arange(n))
+    assert np.array_equal(chans, (elems // inner) % c)
+    if not aligned:
+        assert not plan.vec
+
+
+def test_fake_quant_launch_plan_at_the_library_shapes():
+    """The plan at phase 3d's weight blocks and phase 2's timed shapes:
+    the last axis of every bf16 2048-wide block takes the rows route in
+    16-byte vectors (a warp of column vectors to a block of them) and a
+    grid of ``ROWS_TARGET_BLOCKS``; axis 0 takes whole runs with
+    ``RUN_LOADS`` loads a thread where the run is long enough; the
+    (4, 512, 2048) activation both."""
+    bf = torch.bfloat16
+    p = kfq.launch_plan((2048, 8192), -1, bf)
+    assert p == kfq.FqPlan(kfq.ROUTE_ROWS, True, 256, 1, 4, 64)
+    p = kfq.launch_plan((92544, 2048), -1, bf)
+    assert p == kfq.FqPlan(kfq.ROUTE_ROWS, True, 256, 1, 1,
+                           kfq.ROWS_TARGET_BLOCKS)
+    p = kfq.launch_plan((2048, 8192), 0, bf)
+    assert p == kfq.FqPlan(kfq.ROUTE_RUNS, True, 256, 1, 2048, 1)
+    p = kfq.launch_plan((92544, 2048), 0, bf)
+    assert p == kfq.FqPlan(kfq.ROUTE_RUNS, True, 64, 4,
+                           kfq.RUNS_TARGET_BLOCKS, 1)
+    assert kfq.launch_plan((4, 512, 2048), -1, bf).route == kfq.ROUTE_ROWS
+    assert kfq.launch_plan((4, 512, 2048), 1, bf).route == kfq.ROUTE_RUNS
+    assert kfq.launch_plan((2048, 2048), -1, torch.float32).tx == 256
+    assert kfq.launch_plan((2048, 64), -1, bf) == kfq.FqPlan(
+        kfq.ROUTE_ROWS, True, 32, 8, 1, 256)
+    assert kfq.launch_plan((40, 300), 0, bf).tx == 64
 
 
 _CTYPE_OF = {"int": "c_int", "long long": "c_longlong", "float": "c_float"}
