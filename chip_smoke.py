@@ -49,6 +49,16 @@ Phases, in order; any failure exits non-zero:
      on cuda:0), streams identical to 3b's plain engine; olmoe_1b_7b at
      tp=2 with expert parallelism; the CLI's int8-backed params at tp=2;
      a decode-step A/B of plain, tp=1 and tp=2 in turns;
+  3g. (run right after 3f, on 3b's params and report) sampled and
+     self-speculative serving: a 5-token decode equals 5 one-token steps
+     bit for bit (int8_compute on and off, paged and dense); sampled
+     streams deterministic, alone == batched, tp=2 == tp=1; speculative
+     streams (k = 4, a draft from allocate_draft_bits at 3 bits; paged
+     with 4-bit draft pools, dense with the int8 lane; greedy and
+     sampled) equal the plain engine's, and olmoe_1b_7b's (k = 3,
+     non-binding capacity); the CLI's int8-backed path sampled and
+     speculative, in process and in a subprocess; tok/s in turns, the
+     accept rate beside the FIT proxies, the sampler's cost;
   4. print the kernels line and the main-path metrics;
   5. print {"ok": true, "device": {...}} as the last line.
 
@@ -1053,9 +1063,16 @@ def main() -> int:
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         result["tp_path"] = tpp = tp_path(kept)
-        del kept
         log(f"phase 3f: tensor-parallel path in {time.perf_counter() - t0:.1f} s")
         log(json.dumps({"tp_path": tpp}))
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        result["spec_path"] = spp = spec_path(kept)
+        del kept
+        log(f"phase 3g: sampled and speculative serving in "
+            f"{time.perf_counter() - t0:.1f} s")
+        log(json.dumps({"spec_path": spp}))
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -1086,7 +1103,8 @@ def main() -> int:
         return 0
     mps = result["main_paths"]
     paths = ([mp["launches"] for mp in mps.values()]
-             + [tpp["launches"], cp["launches"], lp["launches"], tp["launches"]])
+             + [tpp["launches"], spp["launches"], cp["launches"], lp["launches"],
+                tp["launches"]])
     log(json.dumps({"kernels": kernels_line(rows, paths)}))
     for arch, mp in mps.items():
         log(f"[{card}] {arch}: report {mp['report_s']:.2f} s; packed weights "
@@ -1115,6 +1133,34 @@ def main() -> int:
             f"{run['decode_ms_per_step']:.1f} ms/step; peak "
             f"{run['peak_mem_gb']:.1f} GB; device busy "
             + f"{run['profile']['device_busy_share']:.3f}")
+    for tag, r in spp["multi_token"].items():
+        log(f"[{card}] 3g multi-token decode ({tag}): 5-token call == 5 steps, "
+            f"logits {r['logits_equal']}, cache {r['caches_equal']}")
+    runs, dp = spp["runs"], spp["draft_plan"]
+    turns = {m: [runs[f"{m} paged greedy {i}"]["decode_tokens_per_s"]
+                 for i in (1, 2)] for m in ("plain", "spec")}
+    log(f"[{card}] 3g internlm2_1_8b decode tok/s in turns (plain, spec, spec, "
+        f"plain; 4 requests, greedy, paged): plain {turns['plain'][0]:.1f} / "
+        f"{turns['plain'][1]:.1f}, spec k={SPEC_K} {turns['spec'][0]:.1f} / "
+        f"{turns['spec'][1]:.1f}")
+    for tag, r in runs.items():
+        if "spec" in r:
+            sp = r["spec"]
+            log(f"[{card}] 3g {tag}: accept rate {sp['accept_rate']:.3f} "
+                f"({sp['accepted']}/{sp['proposed']}), {sp['dispatches']} "
+                f"dispatches, {r['decode_tokens_per_s']:.1f} tok/s")
+    log(f"[{card}] 3g draft plan allocate_draft_bits(avg_bits="
+        f"{SPEC_DRAFT_AVG_BITS}): realized {dp['avg_bits']:.3f} bits "
+        f"{dp['bit_histogram']}, kl_proxy {dp['kl_proxy']:.4g}, accept_proxy "
+        f"{dp['accept_proxy']:.4f}")
+    sab = spp["sampler_ab"]
+    log(f"[{card}] 3g decode step + sampler at batch {sab['batch']}, vocab "
+        f"{sab['vocab']}, in turns: greedy {sab['median_ms']['greedy']:.1f} ms, "
+        f"full (t 0.8, top-k 50, top-p 0.95) {sab['median_ms']['full']:.1f} ms; "
+        f"sampler alone {sab['sampler_ms']['greedy']:.4f} / "
+        f"{sab['sampler_ms']['full']:.4f} ms")
+    log(f"[{card}] phase 3g seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in spp["seconds"].items()))
     log(f"[{card}] launch.serve internlm2_1_8b --int8 --int8-compute --paged: "
         f"int8-backed weights {cp['weight_bytes'] / 1e9:.3f} GB; decode "
         f"{cp['decode_tokens_per_s']:.1f} tok/s; TTFT p50 {cp['ttft_p50']:.3f} s "
@@ -1172,7 +1218,13 @@ PATH_KERNELS = {"dense": ("ef_sqnorm", "qmm", "paged_attention"),
                 "library": ("fake_quant", "fake_quant_per_channel",
                             "flash_attention"),
                 "tp": ("qmm_groups", "qmm", "paged_attention", "grouped_qmm",
-                       "int8_matmul")}
+                       "int8_matmul"),
+                # phase 3g's runs, by path
+                "sampled": ("qmm", "paged_attention"),
+                "sampled_tp": ("qmm_groups", "qmm", "paged_attention"),
+                "spec": ("qmm", "paged_attention"),
+                "spec_moe": ("qmm", "paged_attention", "grouped_qmm"),
+                "spec_int8": ("int8_matmul", "paged_attention")}
 CLI_IDLE_KERNELS = ("qmm", "qmm_groups", "grouped_qmm", "ef_sqnorm")
 # each kernel's launch counter: (module under repro_torch.kernels, attribute)
 COUNTERS = {"ef_sqnorm": ("ef_sqnorm", "launches"), "qmm": ("qmm", "launches"),
@@ -1360,7 +1412,8 @@ def main_path(arch: str, microbatch: int):
     # ranges, engine shape, requests and the plain engine's streams
     keep = {"cfg": cfg, "qparams": qparams, "kv_bits": kv_bits,
             "ranges": report.act_ranges, "ecfg": ecfg, "requests": requests,
-            "streams": [r.output_tokens.tolist() for r in fin]}
+            "streams": [r.output_tokens.tolist() for r in fin],
+            "report": report}
     return res, keep
 
 
@@ -1612,6 +1665,349 @@ def tp_path(kept: dict) -> dict:
         kv_ranges=k["ranges"])})
     lap("plain decode step again")
     return res
+
+
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
+SPEC_K, SPEC_DRAFT_AVG_BITS, SPEC_DRAFT_KV_BITS = 4, 3.0, 4
+MOE_SPEC_K, MOE_CAPACITY = 3, 8.0     # capacity 8: non-binding at 4 slots
+
+
+def multi_token_check(params, cfg, ctx, state, t: int = 5) -> dict:
+    """R1 on the card: a ``t``-token ``decode_step`` after a 6-token
+    prefill equals ``t`` one-token steps, ``torch.equal`` on the logits
+    and on the cache left behind. ``state()`` makes a fresh state (the
+    caches update in place, so each side prefills its own)."""
+    from repro_torch.models.decode import decode_step, prefill_into
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    fresh = state()
+    b = fresh.pos.shape[0]
+    toks = torch.randint(0, cfg.vocab_size, (b, 6 + t), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    with torch.no_grad():
+        _, sa = prefill_into(params, fresh, toks[:, :6], cfg, ctx=ctx)
+        seq = []
+        for j in range(t):
+            lg, sa = decode_step(params, sa, toks[:, 6 + j:7 + j], cfg, ctx=ctx)
+            seq.append(lg[:, 0])
+        _, sb = prefill_into(params, state(), toks[:, :6], cfg, ctx=ctx)
+        fused, sb = decode_step(params, sb, toks[:, 6:], cfg, ctx=ctx)
+    torch.cuda.synchronize()
+    seq = torch.stack(seq, 1)
+    if sa.paged is not None:
+        pairs = [(la.k, sb.paged.layers[n].k) for n, la in sa.paged.layers.items()]
+        pairs += [(la.v, sb.paged.layers[n].v) for n, la in sa.paged.layers.items()]
+    else:
+        pairs = [(sa.kv.k, sb.kv.k), (sa.kv.v, sb.kv.v)]
+    caches = all(torch.equal(x, y) for x, y in pairs)
+    ok = torch.equal(seq, fused) and caches and torch.equal(sa.pos, sb.pos)
+    return {"logits_equal": torch.equal(seq, fused), "caches_equal": caches,
+            "max_abs_diff": (seq.float() - fused.float()).abs().max().item(),
+            "ok": ok}
+
+
+def sampler_ab(engine, turns: int = 3, steps: int = 8) -> dict:
+    """Host-clock ms of a decode step plus its sampler at batch
+    ``max_slots``, greedy (argmax) against the full sampler (temperature,
+    top-k, top-p: two sorts of the vocabulary, the Threefry noise), in
+    turns; and the sampler alone on those logits, CUDA-event timed."""
+    from repro_torch.models.decode import decode_step
+    from repro_torch.serve.sampling import (greedy_tokens, request_keys,
+                                            sample_tokens)
+
+    ec, cfg, dev = engine.ecfg, engine.cfg, engine.device
+    s, npp = ec.max_slots, ec.max_len // ec.page_size
+    st = engine._fresh_state()
+    st.paged.table.copy_(torch.arange(s * npp, dtype=torch.int32).reshape(s, npp))
+    st.paged.write_limit.fill_(ec.max_len)
+    tok = torch.zeros((s, 1), dtype=torch.int32, device=dev)
+    seeds = torch.arange(s, dtype=torch.int32, device=dev)
+    temp = torch.full((s,), SAMPLED["temperature"], device=dev)
+    top_k = torch.full((s,), SAMPLED["top_k"], dtype=torch.int32, device=dev)
+    top_p = torch.full((s,), SAMPLED["top_p"], device=dev)
+    nw = torch.zeros(s, dtype=torch.int64, device=dev)
+
+    def sample(mode, lg, i):
+        if mode == "greedy":
+            return greedy_tokens(lg)
+        return sample_tokens(lg, request_keys(seeds, nw + i), temp, top_k, top_p)
+
+    def timed(mode):
+        nonlocal st
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t = tok
+        for i in range(steps):
+            lg, st = decode_step(engine.params, st, t, cfg, ctx=engine._ctx)
+            t = sample(mode, lg[:, 0, :cfg.vocab_size], i)[:, None]
+        torch.cuda.synchronize()
+        st = st._replace(pos=st.pos - steps)
+        return 1e3 * (time.perf_counter() - t0) / steps
+
+    times = {"greedy": [], "full": []}
+    with torch.no_grad():
+        timed("greedy")
+        for mode in ["greedy", "full", "full", "greedy"] * turns:
+            times[mode].append(timed(mode))
+        lg, _ = decode_step(engine.params, st, tok, cfg, ctx=engine._ctx)
+        lg = lg[:, 0, :cfg.vocab_size].contiguous()
+        timer = Timer()
+        alone = {m: timer(lambda m=m: sample(m, lg, 0)) for m in times}
+    return {"batch": s, "vocab": cfg.vocab_size, "ms_per_step": times,
+            "median_ms": {k: statistics.median(v) for k, v in times.items()},
+            "sampler_ms": alone}
+
+
+def spec_path(kept: dict) -> dict:
+    """Phase 3g: sampled and self-speculative serving at full width on
+    phase 3b's params and report (run right after 3f). Each serving run's
+    counters are set to 0 just before it and read just after.
+
+      * R1 on the card: a 5-token decode equals 5 one-token steps
+        (``torch.equal``, logits and cache) on internlm2_1_8b at
+        int8_compute True and False, over 3b's paged pools and over a
+        dense cache;
+      * sampled serving (temperature 0.8, top-k 50, top-p 0.95, a seed a
+        request) of 8 Poisson requests on 3b's engine: two runs give
+        equal streams, requests 0 and 5 alone equal the batch, and tp=2
+        (two shards on this card) equals tp=1;
+      * speculative serving, k = 4, the draft narrowed by
+        ``allocate_draft_bits(report, avg_bits=3.0)`` and materialized:
+        paged with 4-bit draft pools and dense with the int8 lane, greedy
+        and sampled; every stream equals the plain engine's; the paged
+        greedy pair is timed in turns (plain, spec, spec, plain);
+      * olmoe_1b_7b, k = 3, greedy, capacity factor 8 (non-binding), the
+        serving tree as its own draft on the integer kernels with 4-bit
+        draft pools: streams equal plain;
+      * ``launch.serve.serve()`` at full width with int8-backed W8 through
+        int8_matmul, sampled, ``spec_k=4, spec_kv_bits=4``: streams equal
+        the same engine's plain run; then the CLI itself at smoke size in
+        a subprocess with ``--spec-k 4 --spec-kv-bits 4 --temperature
+        0.8``;
+      * the sampler's cost: a decode step with the full sampler against a
+        greedy one, in turns (``sampler_ab``)."""
+    from repro_torch.core.fit import allocate_draft_bits
+    from repro_torch.launch.mesh import TPMesh
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.context import DequantContext
+    from repro_torch.models.decode import init_decode_state
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.loadgen import poisson_requests
+    from repro_torch.serve.sampling import SamplingParams
+    from repro_torch.serve.spec import SpecConfig
+
+    card = torch.device("cuda", 0)
+    res = {"runs": {}, "launches": {}, "seconds": {}, "launches_by_path": {}}
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        res["seconds"][name] = now - clock[0]
+        clock[0] = now
+
+    def run(tag, engine, reqs, path):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        fin, m = engine.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        for k, v in launches.items():
+            res["launches"][k] = res["launches"].get(k, 0) + v
+            by = res["launches_by_path"].setdefault(path, {})
+            by[k] = by.get(k, 0) + v
+        for r in fin:
+            if r.num_generated != r.max_new_tokens or not (
+                    (r.output_tokens >= 0) & (r.output_tokens < engine.cfg.vocab_size)).all():
+                raise AssertionError(f"3g {tag}: request {r.id} unfinished or "
+                                     "out of the vocab")
+        s = m.summary()
+        out = {"serve_s": wall, "decode_s": m.decode_s,
+               "decode_tokens": m.decode_tokens,
+               "decode_tokens_per_s": s["decode_tokens_per_s"]}
+        if engine._spec is not None:
+            st = dict(engine.spec_stats)
+            st["accept_rate"] = st["accepted"] / max(st["proposed"], 1)
+            out["spec"] = st
+        res["runs"][tag] = out
+        return [r.output_tokens.tolist() for r in fin]
+
+    def same(tag, got, want):
+        if got != want:
+            raise AssertionError(f"3g {tag}: streams differ: {got} vs {want}")
+
+    k = kept["internlm2_1_8b"]
+    cfg, qp, ecfg = k["cfg"], k["qparams"], k["ecfg"]
+    kw = dict(kv_bits=k["kv_bits"], kv_ranges=k["ranges"])
+    plain = Engine(qp, cfg, ecfg, **kw)
+
+    # ---- R1 on the card ----
+    def paged_state():
+        st = plain._fresh_state()
+        npp = ecfg.max_len // ecfg.page_size
+        st.paged.table.copy_(torch.arange(ecfg.max_slots * npp, dtype=torch.int32)
+                             .reshape(ecfg.max_slots, npp))
+        st.paged.write_limit.fill_(ecfg.max_len)
+        return st
+
+    def dense_state():
+        return init_decode_state(cfg, ecfg.max_slots, 64, per_slot_pos=True)
+
+    res["multi_token"] = {}
+    for int8c in (True, False):
+        ctx = DequantContext(None, cfg.param_dtype, int8_compute=int8c)
+        for name, state in (("paged", paged_state), ("dense", dense_state)):
+            tag = f"int8_compute={int8c} {name}"
+            r = res["multi_token"][tag] = multi_token_check(qp, cfg, ctx, state)
+            if not r["ok"]:
+                raise AssertionError(f"3g multi-token decode != sequential ({tag}): {r}")
+    lap("multi-token checks")
+
+    # ---- sampled serving ----
+    def sampled_reqs():
+        return poisson_requests(cfg, 8, rate=4.0, prompt_len=(8, 16),
+                                gen_len=(8, 16), sampling=SamplingParams(
+                                    seed=100, **SAMPLED), seed=4)
+
+    s1 = run("sampled", plain, sampled_reqs(), "sampled")
+    same("sampled run 2", run("sampled again", plain, sampled_reqs(), "sampled"), s1)
+    for rid in (0, 5):
+        alone = [r for r in sampled_reqs() if r.id == rid]
+        alone[0].arrival_time = 0.0
+        same(f"sampled request {rid} alone",
+             run(f"sampled request {rid} alone", plain, alone, "sampled"), [s1[rid]])
+    tp2 = Engine(qp, cfg, dataclasses.replace(ecfg, mesh=TPMesh([card] * 2)), **kw)
+    same("sampled tp=2", run("sampled tp=2", tp2, sampled_reqs(), "sampled_tp"), s1)
+    del tp2
+    lap("sampled serving")
+
+    # ---- speculative serving ----
+    plan = allocate_draft_bits(k["report"], avg_bits=SPEC_DRAFT_AVG_BITS)
+    res["draft_plan"] = {"avg_bits": plan.avg_bits, "kl_proxy": plan.kl_proxy,
+                         "accept_proxy": plan.accept_proxy,
+                         "bit_histogram": {str(b): sum(v == b for v in
+                                                       plan.bits.weight_bits.values())
+                                           for b in sorted(set(plan.bits.weight_bits.values()))}}
+    spec_cfg = SpecConfig(k=SPEC_K, draft_bits=plan.bits,
+                          draft_kv_bits=SPEC_DRAFT_KV_BITS)
+    spec = Engine(qp, cfg, dataclasses.replace(ecfg, spec=spec_cfg), **kw)
+    lap("draft tree")
+
+    def spec_reqs(sampled=False):
+        return poisson_requests(
+            cfg, 4, rate=4.0, prompt_len=(8, 16), gen_len=(12, 20), seed=6,
+            sampling=SamplingParams(seed=200, **SAMPLED) if sampled else None)
+
+    p1 = run("plain paged greedy 1", plain, spec_reqs(), "plain")
+    same("spec paged greedy 1", run("spec paged greedy 1", spec, spec_reqs(), "spec"), p1)
+    same("spec paged greedy 2", run("spec paged greedy 2", spec, spec_reqs(), "spec"), p1)
+    same("plain paged greedy 2", run("plain paged greedy 2", plain, spec_reqs(), "plain"), p1)
+    same("spec paged sampled", run("spec paged sampled", spec, spec_reqs(True), "spec"),
+         run("plain paged sampled", plain, spec_reqs(True), "plain"))
+    del spec
+    dense_ecfg = dataclasses.replace(ecfg, kv_cache="dense")
+    dplain = Engine(qp, cfg, dense_ecfg)
+    dspec = Engine(qp, cfg, dataclasses.replace(
+        dense_ecfg, spec=dataclasses.replace(spec_cfg, draft_kv_bits=8)))
+    for sampled in (False, True):
+        mode = "sampled" if sampled else "greedy"
+        same(f"spec dense {mode}",
+             run(f"spec dense {mode}", dspec, spec_reqs(sampled), "spec"),
+             run(f"plain dense {mode}", dplain, spec_reqs(sampled), "plain"))
+    del dplain, dspec
+    lap("speculative serving")
+
+    # ---- olmoe_1b_7b: k = 3 at a non-binding capacity ----
+    km = kept["olmoe_1b_7b"]
+    mcfg = dataclasses.replace(km["cfg"], capacity_factor=MOE_CAPACITY)
+    mecfg = dataclasses.replace(km["ecfg"], clock="steps")
+    mkw = dict(kv_bits=km["kv_bits"], kv_ranges=km["ranges"])
+
+    def moe_reqs():
+        rs = poisson_requests(mcfg, 3, rate=1.0, prompt_len=(8, 12),
+                              gen_len=16, seed=7)
+        for r in rs:
+            r.arrival_time = 0.0
+        return rs
+
+    mplain = run("olmoe plain", Engine(km["qparams"], mcfg, mecfg, **mkw),
+                 moe_reqs(), "plain_moe")
+    mspec = Engine(km["qparams"], mcfg, dataclasses.replace(mecfg, spec=SpecConfig(
+        k=MOE_SPEC_K, draft_kv_bits=SPEC_DRAFT_KV_BITS, int8_compute=True,
+        materialize_draft=False)), **mkw)
+    same("olmoe spec", run("olmoe spec", mspec, moe_reqs(), "spec_moe"), mplain)
+    del mspec
+    lap("olmoe speculative serving")
+
+    # ---- the serving CLI's int8-backed path, sampled and speculative ----
+    reset_counts()
+    t0 = time.perf_counter()
+    out = serve("internlm2_1_8b", False, 4, 16, 16, 8, int8=True,
+                int8_compute=True, n_requests=4, rate=4.0, paged=True,
+                page_size=16, kv_bits=8, spec_k=SPEC_K,
+                spec_kv_bits=SPEC_DRAFT_KV_BITS,
+                sampling=SamplingParams(seed=300, **SAMPLED))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    for name, v in launches.items():
+        res["launches"][name] = res["launches"].get(name, 0) + v
+    res["launches_by_path"]["spec_int8"] = launches
+    eng = out["engine"]
+    got = [r.output_tokens.tolist() for r in out["requests"]]
+    pe = Engine(eng.params, eng.cfg, dataclasses.replace(eng.ecfg, spec=None),
+                scales=eng.scales, kv_bits=8)
+    want, _ = pe.run(poisson_requests(
+        eng.cfg, 4, 4.0, prompt_len=(8, 16), gen_len=(8, 16),
+        sampling=SamplingParams(seed=300, **SAMPLED), seed=0))
+    same("launch.serve int8-backed spec", got, [r.output_tokens.tolist() for r in want])
+    res["runs"]["launch.serve int8-backed sampled spec"] = {
+        "serve_s": time.perf_counter() - t0, "spec": out["spec"],
+        "decode_tokens_per_s": out["tokens_per_s"]}
+    del out, eng, pe
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("launch.serve int8-backed sampled spec")
+    res["cli_smoke"] = run_spec_cli_smoke()
+    lap("CLI subprocess")
+
+    res["sampler_ab"] = sampler_ab(plain, turns=2)
+    lap("sampler A/B")
+    for path, names in PATH_KERNELS.items():
+        if path in res["launches_by_path"]:
+            for name in names:
+                if res["launches_by_path"][path].get(name, 0) <= 0:
+                    raise AssertionError(f"3g: kernel {name} was not launched by "
+                                         f"the {path} runs")
+    return res
+
+
+def run_spec_cli_smoke() -> dict:
+    """``python -m repro_torch.launch.serve`` at smoke size with sampling
+    and speculation in a subprocess on this card (``--int8 --int8-compute
+    --paged --spec-k 4 --spec-kv-bits 4 --temperature 0.8 --top-k 50
+    --top-p 0.95``); its dump holds the ``"spec"`` entry."""
+    import os
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "internlm2_1_8b", "--smoke", "--int8", "--int8-compute", "--paged",
+           "--requests", "4", "--rate", "0.05", "--spec-k", "4",
+           "--spec-kv-bits", "4", "--temperature", "0.8", "--top-k", "50",
+           "--top-p", "0.95"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          cwd=str(ROOT), timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"launch.serve CLI exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    dump = json.loads(proc.stdout)
+    sp = dump.get("spec")
+    if dump["metrics"]["n_finished"] != 4 or not sp or sp["dispatches"] <= 0:
+        raise AssertionError(f"launch.serve CLI with spec and sampling: {dump}")
+    return {"wall_s": time.perf_counter() - t0, "spec": sp,
+            "n_finished": dump["metrics"]["n_finished"]}
 
 
 def cli_path():

@@ -9,6 +9,12 @@ transposed, and nothing of the reference is imported here.
 ``dtype`` recasts only the leaves the reference stores in the model
 dtype: the ones it always keeps in fp32 (``FP32_LEAVES``, the MoE
 router) stay fp32, as the port's own ``init_params`` makes them.
+
+``bit_config_from_reference`` / ``draft_plan_from_reference`` carry a
+reference ``BitConfig`` / ``DraftPlan`` across by their fields (so a
+draft tree narrowed by the reference's plan can be narrowed by the port
+from the same widths), and ``sampling_tables_from_numpy`` the engine's
+per-slot sampling tables.
 """
 from __future__ import annotations
 
@@ -49,3 +55,34 @@ def params_from_numpy(tree: Any, device: DeviceLike = None,
         return _leaf(node, dev, None if key in FP32_LEAVES else dtype)
 
     return rec(tree)
+
+
+def bit_config_from_reference(cfg: Any):
+    """A reference ``BitConfig`` (any object with ``weight_bits`` and
+    ``act_bits`` mappings) -> the port's ``BitConfig``."""
+    from repro_torch.quant.policy import BitConfig
+    return BitConfig({k: int(v) for k, v in cfg.weight_bits.items()},
+                     {k: int(v) for k, v in cfg.act_bits.items()})
+
+
+def draft_plan_from_reference(plan: Any):
+    """A reference ``DraftPlan`` -> the port's, field by field."""
+    from repro_torch.core.fit import DraftPlan
+    return DraftPlan(bits=bit_config_from_reference(plan.bits),
+                     kl_proxy=float(plan.kl_proxy),
+                     accept_proxy=float(plan.accept_proxy),
+                     avg_bits=float(plan.avg_bits))
+
+
+# the engine's per-slot sampling tables and their dtypes
+SAMPLING_TABLES = {"seeds": torch.int32, "temps": torch.float32,
+                   "top_ks": torch.int32, "top_ps": torch.float32}
+
+
+def sampling_tables_from_numpy(tables: Any, device: DeviceLike = None):
+    """The reference engine's slot table (a mapping holding at least
+    ``seeds``, ``temps``, ``top_ks`` and ``top_ps`` as arrays) -> the
+    port engine's four (S,) tensors on ``device``, keyed alike."""
+    dev = resolve_device(device)
+    return {k: torch.as_tensor(np.asarray(tables[k])).to(dt).to(dev)
+            for k, dt in SAMPLING_TABLES.items()}

@@ -247,3 +247,43 @@ class SensitivityReport:
             act_ranges={k: tuple(v) for k, v in d["act_ranges"].items()},
             param_sizes={k: int(v) for k, v in d["param_sizes"].items()},
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class DraftPlan:
+    """FIT-chosen draft widths for self-speculative decoding.
+
+    ``kl_proxy`` is the draft config's FIT score: up to the metric's
+    Fisher approximation, twice the expected KL between the fp model and
+    the draft, the quantity that governs how often the draft's
+    next-token distribution disagrees with the serving model's.
+    ``accept_proxy = exp(-kl_proxy / 2)`` maps it onto (0, 1] as a
+    monotone stand-in for the per-token accept rate: 1.0 when the draft
+    is the serving config, decaying as the draft gets more aggressive.
+    """
+
+    bits: BitConfig
+    kl_proxy: float
+    accept_proxy: float
+    avg_bits: float
+
+
+def allocate_draft_bits(report: SensitivityReport, policy=None,
+                        avg_bits: float = 3.0) -> DraftPlan:
+    """Allocate a draft BitConfig under an accept-rate/KL proxy: the
+    serving config's marginal-utility greedy (``core.mpq.greedy_allocate``)
+    at an aggressive average-bits budget, scored with FIT. The draft
+    shares the serving tree's storage format (QTensor re-packed at the
+    draft widths), so this trades draft-step cost against the accept
+    rate the FIT score predicts — no draft training, no second model."""
+    from repro_torch.core.mpq import config_cost_bits, greedy_allocate
+    from repro_torch.quant.policy import QuantPolicy
+    policy = policy or QuantPolicy()
+    total = sum(report.param_sizes.values())
+    cfg = greedy_allocate(report, policy, budget_bits=avg_bits * total)
+    bits = BitConfig(cfg.weight_bits, {})
+    kl = float(report.fit_weights(bits.weight_bits))
+    realized = config_cost_bits(report, bits) / max(total, 1)
+    return DraftPlan(bits=bits, kl_proxy=kl,
+                     accept_proxy=float(np.exp(-0.5 * kl)),
+                     avg_bits=float(realized))

@@ -18,6 +18,7 @@ from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from repro_torch._device import resolve_device
 from repro_torch.configs import ModelConfig
 from repro_torch.qtensor import (
     PACKED_BITS, bytes_per_element, logical_size, pack, packed_size,
@@ -183,7 +184,7 @@ def init_paged_kv(cfg: ModelConfig, pcfg: PagedKVConfig, slots: int,
     """Zeroed pools + unmapped page tables on ``device``; with a
     ``mesh`` (a TPMesh whose size divides the kv heads) each layer's
     pool is a ``ShardedPages`` over the mesh's devices."""
-    dev = torch.device(device) if device is not None else torch.device("cpu")
+    dev = resolve_device(device)
     kv, hd = cfg.num_kv_heads, cfg.head_dim
     layers: Dict[str, Pool] = {}
     for i, bits in enumerate(pcfg.kv_bits):
@@ -316,6 +317,18 @@ def page_bytes_all_layers(cfg: ModelConfig, pcfg: PagedKVConfig) -> float:
 def pool_bytes(cfg: ModelConfig, pcfg: PagedKVConfig) -> float:
     """Total HBM of the paged pools (scales excluded)."""
     return pcfg.num_pages * page_bytes_all_layers(cfg, pcfg)
+
+
+def per_shard_pool_bytes(cfg: ModelConfig, pcfg: PagedKVConfig,
+                         tp_shards: int = 1) -> float:
+    """HBM one device holds for the paged pools under tensor-parallel
+    serving: pools shard by kv head when ``num_kv_heads % tp_shards ==
+    0`` (each shard stores 1/tp of every page), else they replicate and
+    every device pays the full pool."""
+    total = pool_bytes(cfg, pcfg)
+    if tp_shards > 1 and cfg.num_kv_heads % tp_shards == 0:
+        return total / tp_shards
+    return total
 
 
 def dense_kv_bytes(cfg: ModelConfig, slots: int, max_len: int,

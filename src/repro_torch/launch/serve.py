@@ -34,10 +34,22 @@ one process; the tokens equal ``--tp 1``'s. It implies
 ``--int8-compute`` for quantized weights. ``serve(tp=N, device="cpu")``
 puts the N shards on the CPU.
 
+Sampling: ``--temperature`` (0 = greedy), ``--top-k``, ``--top-p`` with
+per-request seeds from ``--seed``; a request samples the same tokens
+alone or batched, at any ``--tp``.
+
+Self-speculative decoding: ``--spec-k K`` drafts K tokens a dispatch
+from the serving tree (the emitted tokens are the plain engine's, bit
+for bit); ``--spec-bits B`` narrows the packed tree to B bits for the
+draft (needs ``--packed``), ``--spec-bits fit:AVG`` to the widths
+``core.fit.allocate_draft_bits`` spends an AVG-bit budget on from a
+sensitivity report of the fp weights; ``--spec-kv-bits`` is the draft
+lane's KV width (8 or 16 dense, any page width paged). The JSON dump
+gains a ``"spec"`` entry (accept rate, dispatches, the FIT proxies).
+
 Not ported yet, and refused with ``NotImplementedError`` when given a
-value other than the default: ``--spec-*`` (ROADMAP A4),
-``--trace``, ``--events``, ``--metrics-*``, ``--drain-every``,
-``--drift-*`` (A6), ``--temperature``, ``--top-k``, ``--top-p`` (A1).
+value other than the default: ``--trace``, ``--events``,
+``--metrics-*``, ``--drain-every``, ``--drift-*`` (ROADMAP A6).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2_1_8b \\
       --smoke --int8 --int8-compute --paged --kv-bits 8 --requests 4 \\
@@ -62,9 +74,9 @@ from repro_torch.models.transformer import init_params
 from repro_torch.quant.policy import QuantPolicy
 from repro_torch.quant.quantizer import QuantSpec, fake_quant_ref
 from repro_torch.serve import (
-    Engine, EngineConfig, SamplingParams, poisson_requests, quantize_params,
-    quantize_params_int8, sharded_storage_bytes, trace_requests,
-    weight_storage_bytes)
+    Engine, EngineConfig, SamplingParams, SpecConfig, poisson_requests,
+    quantize_params, quantize_params_int8, sharded_storage_bytes,
+    trace_requests, weight_storage_bytes)
 from repro_torch.utils.pytree import map_with_names
 
 log = logging.getLogger("repro_torch.serve")
@@ -93,9 +105,6 @@ def _refuse_unported(**flags) -> None:
     """Raise on a flag of a feature the port does not have yet (its
     ROADMAP item in the message) when it is away from its default."""
     unported = {
-        "spec_k": (0, "speculative decoding (ROADMAP A4)"),
-        "spec_bits": (None, "speculative decoding (ROADMAP A4)"),
-        "spec_kv_bits": (None, "speculative decoding (ROADMAP A4)"),
         "trace_path": (None, "observability (ROADMAP A6)"),
         "events_path": (None, "observability (ROADMAP A6)"),
         "metrics_file": (None, "observability (ROADMAP A6)"),
@@ -104,9 +113,6 @@ def _refuse_unported(**flags) -> None:
         "drift_every": (0, "the FIT drift monitor (ROADMAP A6)"),
         "drift_stale": (1.0, "the FIT drift monitor (ROADMAP A6)"),
         "drift_threshold": (1.5, "the FIT drift monitor (ROADMAP A6)"),
-        "temperature": (0.0, "sampled decoding (ROADMAP A1)"),
-        "top_k": (0, "sampled decoding (ROADMAP A1)"),
-        "top_p": (1.0, "sampled decoding (ROADMAP A1)"),
     }
     for name, value in flags.items():
         default, what = unported[name]
@@ -140,16 +146,16 @@ def serve(arch: str, smoke: bool, batch: int, prompt_len: int, gen_len: int,
     ``requests``, the realized ``weight_bytes``, the ``engine`` (for
     further runs on the same weights) and, closed-loop, the
     ``generated`` (B, G) matrix; ``tp`` and ``shard_weight_bytes``, the
-    weight bytes one shard holds."""
+    weight bytes one shard holds; with ``spec_k`` > 1, ``spec`` (the
+    reference's dict: accept rate, dispatches and, for ``fit:AVG``, the
+    plan's FIT proxies)."""
     sampling = sampling or SamplingParams()
     _refuse_unported(
-        spec_k=spec_k, spec_bits=spec_bits, spec_kv_bits=spec_kv_bits,
         trace_path=trace_path, events_path=events_path,
         metrics_file=metrics_file, metrics_port=metrics_port,
         drain_every=drain_every, drift_every=drift_every,
-        drift_stale=drift_stale, drift_threshold=drift_threshold,
-        temperature=sampling.temperature, top_k=sampling.top_k,
-        top_p=sampling.top_p)
+        drift_stale=drift_stale, drift_threshold=drift_threshold)
+    spec_fit = spec_bits is not None and str(spec_bits).startswith("fit:")
     dev = resolve_device(device)
     mesh = None
     if tp > 1:
@@ -165,6 +171,8 @@ def serve(arch: str, smoke: bool, batch: int, prompt_len: int, gen_len: int,
         # per-layer scales / page pools / payload shapes are path-keyed
         cfg = dataclasses.replace(cfg, scan_layers=False)
     params = init_params(cfg, seed=seed, device=dev)
+    # the fp weights before PTQ: what the FIT draft report measures
+    fp_params = params if spec_fit else None
 
     scales = None
     policy = QuantPolicy()
@@ -181,6 +189,29 @@ def serve(arch: str, smoke: bool, batch: int, prompt_len: int, gen_len: int,
                                                   device=dev)
         else:
             params = quantize_weights(params, weight_bits, policy)
+
+    spec, draft_plan = None, None
+    if spec_k and spec_k > 1:
+        draft_bits = None
+        if spec_bits is not None:
+            if not packed:
+                raise ValueError(
+                    "--spec-bits narrows the packed QTensor tree for the "
+                    "draft pass; it requires --packed")
+            if spec_fit:
+                draft_plan = _fit_draft_plan(cfg, fp_params, policy, seed,
+                                             float(str(spec_bits).split(":", 1)[1]),
+                                             dev)
+                draft_bits = draft_plan.bits
+                log.info("FIT draft plan: %.2f avg bits, KL proxy %.4g, "
+                         "accept proxy %.2f", draft_plan.avg_bits,
+                         draft_plan.kl_proxy, draft_plan.accept_proxy)
+            else:
+                draft_bits = int(spec_bits)
+        spec = SpecConfig(k=spec_k, draft_bits=draft_bits,
+                          draft_kv_bits=spec_kv_bits if spec_kv_bits
+                          is not None else 8)
+    del fp_params
 
     if n_requests is None:
         reqs = trace_requests(cfg, [(0.0, prompt_len, gen_len)] * batch,
@@ -202,7 +233,7 @@ def serve(arch: str, smoke: bool, batch: int, prompt_len: int, gen_len: int,
         decode_burst=decode_burst, clock=clock, int8_compute=int8_compute,
         kv_cache="paged" if paged else "dense", page_size=page_size,
         kv_pages=kv_pages, prefix_sharing=prefix_sharing,
-        moe_dispatch=moe_dispatch, mesh=mesh)
+        moe_dispatch=moe_dispatch, mesh=mesh, spec=spec)
     engine = Engine(params, cfg, ecfg, scales=scales, kv_bits=kv_bits,
                     device=None if mesh else dev)
     finished, metrics = engine.run(reqs)
@@ -223,11 +254,44 @@ def serve(arch: str, smoke: bool, batch: int, prompt_len: int, gen_len: int,
     if n_requests is None:
         # closed-loop: uniform lengths -> dense (B, G) matrix
         out["generated"] = np.stack([r.output_tokens for r in finished])
+    if spec is not None:
+        st = engine.spec_stats
+        rate = st["accepted"] / max(st["proposed"], 1)
+        out["spec"] = {"k": spec.k, "draft_bits": str(spec.draft_bits),
+                       "draft_kv_bits": spec.draft_kv_bits,
+                       "dispatches": st["dispatches"],
+                       "proposed": st["proposed"],
+                       "accepted": st["accepted"], "accept_rate": rate}
+        if draft_plan is not None:
+            out["spec"]["fit_avg_bits"] = draft_plan.avg_bits
+            out["spec"]["fit_kl_proxy"] = draft_plan.kl_proxy
+            out["spec"]["fit_accept_proxy"] = draft_plan.accept_proxy
+        log.info("spec decode: k=%d, %d dispatches, accept rate %.0f%% "
+                 "(%d/%d drafts)", spec.k, st["dispatches"], 100 * rate,
+                 st["accepted"], st["proposed"])
     log.info("%s slots=%d bits=%s%s | prefill %.2fs, decode %.2fs "
              "(%.1f tok/s, occupancy %.0f%%)", cfg.name, batch, weight_bits,
              " int8" if int8 else "", metrics.prefill_s, metrics.decode_s,
              out["tokens_per_s"], 100 * (summ["slot_occupancy"] or 0))
     return out
+
+
+def _fit_draft_plan(cfg, fp_params, policy: QuantPolicy, seed: int,
+                    avg_bits: float, dev):
+    """``--spec-bits fit:AVG``: a sensitivity report of the fp weights on
+    two synthetic calibration batches, then ``allocate_draft_bits`` at
+    an AVG-bit average."""
+    from repro_torch.core import allocate_draft_bits, build_report
+    from repro_torch.data.synthetic import LMStreamConfig, lm_batches
+    from repro_torch.models.transformer import loss_fn
+
+    stream = lm_batches(LMStreamConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                       global_batch=4, seed=seed))
+    report = build_report(lambda p, b: loss_fn(p, b, cfg), None, None, None,
+                          fp_params, [next(stream) for _ in range(2)],
+                          microbatch=4, tolerance=None, max_batches=2,
+                          device=dev)
+    return allocate_draft_bits(report, policy, avg_bits=avg_bits)
 
 
 def main() -> None:
@@ -280,13 +344,18 @@ def main() -> None:
                          "the dense per-expert qmm loop (bit-identical "
                          "oracle), or the fp-dequant einsum fallback")
     ap.add_argument("--spec-k", type=int, default=0,
-                    help="speculative decoding (not ported yet)")
+                    help="speculative decoding: draft tokens proposed per "
+                         "dispatch (> 1 enables; the emitted tokens equal "
+                         "non-speculative serving)")
     ap.add_argument("--spec-bits", default=None,
-                    help="speculative draft widths (not ported yet)")
+                    help="draft widths: an int narrows every packed block "
+                         "to it; fit:AVG lets allocate_draft_bits spend an "
+                         "AVG-bit budget from a FIT report (needs --packed)")
     ap.add_argument("--spec-kv-bits", type=int, default=None,
-                    help="speculative draft KV width (not ported yet)")
+                    help="the draft lane's KV width (default 8; dense "
+                         "serving takes 8 or 16)")
     ap.add_argument("--temperature", type=float, default=0.0,
-                    help="sampled decoding (not ported yet: 0 only)")
+                    help="sampling temperature (0 = greedy)")
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
@@ -328,6 +397,8 @@ def main() -> None:
                 spec_bits=args.spec_bits, spec_kv_bits=args.spec_kv_bits)
     dump = {"metrics": out["metrics"], "tp": out["tp"],
             "shard_weight_bytes": out["shard_weight_bytes"]}
+    if "spec" in out:
+        dump["spec"] = out["spec"]
     print(json.dumps(dump, indent=2))
     if args.json:
         with open(args.json, "w") as f:

@@ -129,22 +129,39 @@ def _write_dense(pairs, rows: torch.Tensor, posb: torch.Tensor) -> None:
         c[rows, wpos] = torch.where(valid, new, last)
 
 
+# the static symmetric scale of an int8 dense cache (the reference's
+# attention_decode grid; the speculative draft lane's KV storage)
+KV_SCALE = 0.05
+
+
+def quantize_dense_kv_values(x: torch.Tensor) -> torch.Tensor:
+    """Float K/V -> an int8 dense cache's values: ``clip(round(x /
+    KV_SCALE), ±127)``."""
+    return torch.clamp(torch.round(x.to(torch.float32) / KV_SCALE),
+                       -127, 127).to(torch.int8)
+
+
 def attention_decode(x: torch.Tensor, p: Dict, cfg: ModelConfig, ctx,
                      cache: KVCache, pos: torch.Tensor
                      ) -> Tuple[torch.Tensor, KVCache]:
     """Decode x: (B, T, D) at consecutive positions against a dense cache
-    (B, T_max, KV, Dh) in the model dtype. ``pos`` is a () scalar or a
-    (B,) per-slot vector; row b's tokens land at pos[b] .. pos[b]+T-1.
+    (B, T_max, KV, Dh) in the model dtype, or in int8 on the static
+    ``KV_SCALE`` grid. ``pos`` is a () scalar or a (B,) per-slot vector;
+    row b's tokens land at pos[b] .. pos[b]+T-1.
 
     The read goes through ``ops.paged_attention`` with the cache viewed
     as pages of ``dense_page_size(T_max)`` tokens and an identity page
     table: on the card a dense cache and a paged pool of 16-token pages
     holding the same values read through one kernel, bit for bit; on
-    the CPU the plain version equals the reference's dense read."""
+    the CPU the plain version equals the reference's dense read. An int8
+    cache reads as 8-bit pages whose every scale is ``KV_SCALE``."""
     b, tq = x.shape[0], x.shape[1]
     offs = torch.arange(tq, dtype=torch.int64, device=x.device)
     posb = (pos.reshape(-1, 1).to(torch.int64) + offs[None, :]).expand(b, tq)
     q, knew, vnew = _qkv_decode(x, p, cfg, ctx, posb)
+    quant = cache.k.dtype == torch.int8
+    if quant:
+        knew, vnew = quantize_dense_kv_values(knew), quantize_dense_kv_values(vnew)
     rows = torch.arange(b, device=x.device)[:, None].expand(b, tq)
     _write_dense(((cache.k, knew), (cache.v, vnew)), rows, posb)
     t = cache.k.shape[1]
@@ -153,7 +170,12 @@ def attention_decode(x: torch.Tensor, p: Dict, cfg: ModelConfig, ctx,
     vp = cache.v.reshape(kp.shape)
     table = torch.arange(kp.shape[0], dtype=torch.int32,
                          device=x.device).reshape(b, t // page)
-    o = _paged_read(q, kp, vp, table, posb).to(x.dtype)
+    sc, bits = None, 16
+    if quant:
+        sc = torch.full((kp.shape[0], kp.shape[2]), KV_SCALE,
+                        dtype=torch.float32, device=x.device)
+        bits = 8
+    o = _paged_read(q, kp, vp, table, posb, sc, sc, bits).to(x.dtype)
     o = ctx.tap("attn_out", o)
     return ctx.matmul("wo", o, p["wo"]), cache
 

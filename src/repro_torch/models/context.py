@@ -88,6 +88,34 @@ class Context:
     def tap(self, name: str, a: torch.Tensor) -> torch.Tensor:
         return a
 
+    def rows_exact(self, name: str, w) -> bool:
+        """Whether ``matmul(name, x, w)`` gives a row of x the same bits
+        whatever the number of rows. A library GEMM may split its
+        reduction by the row count, so only the integer kernel routes
+        (exact int32 dots, a fixed fold per element) say yes."""
+        return False
+
+
+class ColumnContext:
+    """``ctx`` seen by a (B, T, ·) decode call with T > 1: ``matmul``
+    runs one call a query column where the route is not row-exact
+    (``rows_exact``), so every column gets the bits of a one-token step;
+    row-exact blocks stay one fused call. Everything else is ``ctx``'s
+    own (its scope stack included)."""
+
+    def __init__(self, ctx: Context):
+        self._ctx = ctx
+
+    def __getattr__(self, name: str):
+        return getattr(self._ctx, name)
+
+    def matmul(self, name: str, x: torch.Tensor, w) -> torch.Tensor:
+        ctx = self._ctx
+        if x.ndim != 3 or x.shape[1] == 1 or ctx.rows_exact(name, w):
+            return ctx.matmul(name, x, w)
+        return torch.cat([ctx.matmul(name, x[:, j:j + 1].contiguous(), w)
+                          for j in range(x.shape[1])], dim=1)
+
 
 class QATContext(Context):
     """Fake-quantize weights and activations with per-block levels.
@@ -183,6 +211,14 @@ class DequantContext(Context):
         if s is None or w.dtype != torch.int8:
             return w
         return (w.to(torch.float32) * s).to(self.dtype)
+
+    def rows_exact(self, name: str, w) -> bool:
+        if not self.int8_compute:
+            return False
+        if isinstance(w, QTensor):
+            return len(w.shape) == 2
+        return (self.scales.get(self.path(name)) is not None
+                and w.dtype == torch.int8 and w.ndim == 2)
 
     def _rows_through(self, x: torch.Tensor, n: int, kernel) -> torch.Tensor:
         """Quantize x's rows and run ``kernel(xq, xs)`` -> (M, n) fp32."""
@@ -321,6 +357,11 @@ class ShardedDequantContext(DequantContext):
             * scales[0].reshape(1, -1)
 
     # -- dispatch ----------------------------------------------------------
+    def rows_exact(self, name: str, w) -> bool:
+        # planned blocks are quantized and combine exactly (see above)
+        return (self.shard_plan.get(self.path(name)) in ("col", "row")
+                or super().rows_exact(name, w))
+
     def matmul(self, name: str, x: torch.Tensor, w) -> torch.Tensor:
         path = self.path(name)
         mode = self.shard_plan.get(path)

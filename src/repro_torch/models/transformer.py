@@ -90,28 +90,41 @@ def _attn_mlp_block(x, bp, cfg: ModelConfig, ctx, positions=None):
     return x, aux
 
 
+def column_rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
+    """``rmsnorm`` of (B, T, D) decode columns, one call a column when
+    T > 1: a device's row reduction may split its sum by the row count,
+    and each column must keep a one-token step's bits."""
+    if x.shape[1] == 1:
+        return rmsnorm(x, gamma, eps)
+    return torch.cat([rmsnorm(x[:, j:j + 1].contiguous(), gamma, eps)
+                      for j in range(x.shape[1])], dim=1)
+
+
 def _decode_block(x, bp, cfg, ctx, attn):
     """Decode-block skeleton shared by the dense- and paged-cache paths:
-    ``attn(h)`` runs the attention step and returns (output, state)."""
+    ``attn(h)`` runs the attention step and returns (output, state). A
+    (B, T) call gives each column the bits of a one-token step (see
+    ``models.decode.decode_step``)."""
     with ctx.scope("attn"):
-        h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
+        h = column_rmsnorm(x, bp["ln1"], cfg.norm_eps)
         a, st = attn(h)
         x = x + a
     if cfg.family == "moe":
         with ctx.scope("moe"):
-            h = rmsnorm(x, bp["ln2"], cfg.norm_eps)
+            h = column_rmsnorm(x, bp["ln2"], cfg.norm_eps)
             if h.shape[1] > 1:
                 # capacity and rank depend on the call's token count, so
                 # each query column is routed on its own: a (B, T) call
                 # equals T one-token steps even when experts overflow
-                y = torch.cat([moe_apply(h[:, j:j + 1], bp["moe"], cfg, ctx)[0]
+                y = torch.cat([moe_apply(h[:, j:j + 1].contiguous(), bp["moe"],
+                                         cfg, ctx)[0]
                                for j in range(h.shape[1])], dim=1)
             else:
                 y, _ = moe_apply(h, bp["moe"], cfg, ctx)
             x = x + y
     else:
         with ctx.scope("mlp"):
-            h = rmsnorm(x, bp["ln2"], cfg.norm_eps)
+            h = column_rmsnorm(x, bp["ln2"], cfg.norm_eps)
             x = x + mlp_apply(h, bp["mlp"], cfg.act, ctx)
     return x, st
 

@@ -1,8 +1,9 @@
 """The port's serving CLI (``repro_torch.launch.serve``) against
 ``repro.launch.serve`` on the CPU at smoke size: PTQ pinning, closed-loop
 ``generated`` equal to the reference's on the int8-backed paged route
-with a shared prefix, the refusal of flags not ported yet, the GPU
-default, and ``main()``'s JSON dump."""
+with a shared prefix, the speculative and sampling flags at smoke size,
+the refusal of flags not ported yet, the GPU default, and ``main()``'s
+JSON dump."""
 import dataclasses
 import json
 import sys
@@ -131,16 +132,60 @@ def test_serve_open_loop_moe_packed():
 
 
 @pytest.mark.parametrize("flag", [
-    dict(spec_k=2), dict(spec_bits="4"), dict(spec_kv_bits=8),
     dict(trace_path="t.json"), dict(events_path="e.jsonl"),
     dict(metrics_file="m.prom"), dict(metrics_port=0), dict(drain_every=4),
-    dict(drift_every=1), dict(drift_stale=2.0), dict(drift_threshold=2.0),
-    dict(sampling=SamplingParams(temperature=0.7)),
-    dict(sampling=SamplingParams(top_k=5)),
-    dict(sampling=SamplingParams(top_p=0.9))])
+    dict(drift_every=1), dict(drift_stale=2.0), dict(drift_threshold=2.0)])
 def test_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP A[1456]"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         tserve.serve("internlm2_1_8b", True, 2, 8, 4, None, device="cpu", **flag)
+
+
+SPEC_KW = dict(packed=True, paged=True, kv_bits=8, n_requests=3, rate=0.5)
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op CPU thread: the suite runs files in parallel worker
+    processes, and several multi-threaded torch pools on one host stall
+    each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("flag", [
+    dict(spec_k=3), dict(spec_k=3, spec_bits="fit:3.0"),
+    dict(spec_k=3, spec_bits="4", spec_kv_bits=4),
+    dict(sampling=SamplingParams(temperature=0.7, seed=3)),
+    dict(sampling=SamplingParams(temperature=0.7, top_k=5, seed=3)),
+    dict(sampling=SamplingParams(temperature=0.7, top_p=0.9, seed=3))])
+@pytest.mark.usefixtures("one_thread")
+def test_spec_and_sampling_flags_run(flag):
+    """The speculative and sampling flags on the smoke config: a
+    speculative run emits the plain run's tokens with its ``"spec"``
+    entry filled (the FIT proxies for ``fit:AVG``); a sampled run gives
+    the same tokens twice, and not the greedy ones."""
+    def run(**kw):
+        out = tserve.serve("internlm2_1_8b", True, 2, 12, 8, None,
+                           device="cpu", **SPEC_KW, **kw)
+        assert out["metrics"]["n_finished"] == 3
+        return [r.output_tokens.tolist() for r in out["requests"]], out
+    plain, _ = run(sampling=flag.get("sampling"))
+    got, out = run(**flag)
+    if "spec_k" in flag:
+        assert got == plain
+        sp = out["spec"]
+        assert sp["k"] == 3 and sp["dispatches"] > 0
+        assert 0 <= sp["accepted"] <= sp["proposed"]
+        assert ("fit_accept_proxy" in sp) == ("spec_bits" in flag
+                                              and "fit" in flag["spec_bits"])
+        if "spec_kv_bits" in flag:
+            assert sp["draft_kv_bits"] == 4
+    else:
+        assert "spec" not in out
+        greedy, _ = run()
+        assert got == plain and got != greedy
 
 
 def test_serve_needs_a_gpu_unless_asked_for_cpu(monkeypatch):

@@ -60,7 +60,7 @@ def _paged_states(jcfg, tcfg, kv_bits):
     tpc = TPagedKVConfig.build(tcfg, MAX_LEN, B, page_size=PAGE, kv_bits=kv_bits)
     ranges = {f"layers/{i}/attn/{s}": (-3.0, 2.5) for i in range(2) for s in "kv"}
     js = jdec.init_paged_decode_state(jcfg, jp, B, ranges)
-    ts = tdec.init_paged_decode_state(tcfg, tpc, B, ranges)
+    ts = tdec.init_paged_decode_state(tcfg, tpc, B, ranges, device="cpu")
     table = np.arange(B * jp.pages_per_slot, dtype=np.int32)[::-1].reshape(B, -1).copy()
     limit = np.array([MAX_LEN, MAX_LEN - 5], np.int32)
     js = js._replace(paged=js.paged._replace(table=jnp.asarray(table),
@@ -75,7 +75,7 @@ def test_decode_step_logits_match(models, kv):
     jcfg, jp, tcfg, tp = models
     if kv == "dense":
         js = jdec.init_decode_state(jcfg, B, MAX_LEN, per_slot_pos=True)
-        ts = tdec.init_decode_state(tcfg, B, MAX_LEN, per_slot_pos=True)
+        ts = tdec.init_decode_state(tcfg, B, MAX_LEN, per_slot_pos=True, device="cpu")
     else:
         bits = 16 if kv == "paged16" else {0: 8, 1: 4}
         js, ts = _paged_states(jcfg, tcfg, bits)
@@ -93,7 +93,7 @@ def test_prefill_into_matches(models):
     jcfg, jp, tcfg, tp = models
     toks = _tokens(7, seed=3)
     js = jdec.init_decode_state(jcfg, B, MAX_LEN)
-    ts = tdec.init_decode_state(tcfg, B, MAX_LEN)
+    ts = tdec.init_decode_state(tcfg, B, MAX_LEN, device="cpu")
     jl, js = jax.jit(lambda p, s, t: jdec.prefill_into(p, s, t, jcfg))(
         jp, js, jnp.asarray(toks))
     with torch.no_grad():
@@ -105,7 +105,7 @@ def test_prefill_into_matches(models):
 
 def test_paged_equals_dense_within_port(models):
     jcfg, jp, tcfg, tp = models
-    dense = tdec.init_decode_state(tcfg, B, MAX_LEN, per_slot_pos=True)
+    dense = tdec.init_decode_state(tcfg, B, MAX_LEN, per_slot_pos=True, device="cpu")
     _, paged = _paged_states(jcfg, tcfg, 16)
     toks = _tokens(9, seed=4)
     with torch.no_grad():
@@ -118,8 +118,8 @@ def test_paged_equals_dense_within_port(models):
 
 def test_state_insert_slot(models):
     jcfg, jp, tcfg, tp = models
-    big = tdec.init_decode_state(tcfg, 3, MAX_LEN, per_slot_pos=True)
-    sub = tdec.init_decode_state(tcfg, 1, MAX_LEN)
+    big = tdec.init_decode_state(tcfg, 3, MAX_LEN, per_slot_pos=True, device="cpu")
+    sub = tdec.init_decode_state(tcfg, 1, MAX_LEN, device="cpu")
     with torch.no_grad():
         _, sub = tdec.prefill_into(tp, sub, torch.from_numpy(_tokens(5)[:1]), tcfg)
     tdec.state_insert_slot(tcfg, big, sub, 1)

@@ -249,14 +249,14 @@ def test_decode_and_prefill_logits_match(model, kv):
     jcfg, jp, tcfg, tp = model
     if kv == "dense":
         js = jdec.init_decode_state(jcfg, B, MAX_LEN, per_slot_pos=True)
-        ts = tdec.init_decode_state(tcfg, B, MAX_LEN, per_slot_pos=True)
+        ts = tdec.init_decode_state(tcfg, B, MAX_LEN, per_slot_pos=True, device="cpu")
     else:
         from repro.kvcache.paged import PagedKVConfig as JP
         from repro_torch.kvcache.paged import PagedKVConfig as TP
         jpc = JP.build(jcfg, MAX_LEN, B, page_size=PAGE, kv_bits=KV_BITS)
         tpc = TP.build(tcfg, MAX_LEN, B, page_size=PAGE, kv_bits=KV_BITS)
         js = jdec.init_paged_decode_state(jcfg, jpc, B, RANGES)
-        ts = tdec.init_paged_decode_state(tcfg, tpc, B, RANGES)
+        ts = tdec.init_paged_decode_state(tcfg, tpc, B, RANGES, device="cpu")
         table = np.arange(B * jpc.pages_per_slot, dtype=np.int32).reshape(B, -1)
         js = js._replace(paged=js.paged._replace(
             table=jnp.asarray(table), write_limit=jnp.full((B,), MAX_LEN, jnp.int32)))
@@ -276,9 +276,9 @@ def test_decode_and_prefill_logits_match(model, kv):
 def test_multi_token_decode_and_einsum_dispatch(packed, monkeypatch):
     """A (B, T) packed decode call routes each query column on its own
     (capacity 1 here, so experts overflow): on the grouped dispatch its
-    logits equal T one-token steps up to the attention's fp32 summation
-    order; on the einsum dispatch (fp-dequant experts) they equal the
-    reference's own multi-token call within 1e-5."""
+    logits equal T one-token steps bit for bit; on the einsum dispatch
+    (fp-dequant experts) they equal the reference's own multi-token call
+    within 1e-5."""
     jcfg, jqp, tcfg, tqp = packed
     monkeypatch.setenv("REPRO_KERNELS", "ref")
     toks = torch.from_numpy(_tokens(3, seed=7))
@@ -288,12 +288,11 @@ def test_multi_token_decode_and_einsum_dispatch(packed, monkeypatch):
             ctx = DequantContext(None, tcfg.param_dtype, int8_compute=True,
                                  moe_dispatch=dispatch)
             out[dispatch], _ = tdec.decode_step(
-                tqp, tdec.init_decode_state(tcfg, B, MAX_LEN), toks, tcfg, ctx)
+                tqp, tdec.init_decode_state(tcfg, B, MAX_LEN, device="cpu"), toks, tcfg, ctx)
         ctx = DequantContext(None, tcfg.param_dtype, int8_compute=True)
         steps, _ = tdec.prefill_into(
-            tqp, tdec.init_decode_state(tcfg, B, MAX_LEN), toks, tcfg, ctx)
-    np.testing.assert_allclose(out["grouped"].numpy(), steps.numpy(), atol=1e-5,
-                               rtol=0)
+            tqp, tdec.init_decode_state(tcfg, B, MAX_LEN, device="cpu"), toks, tcfg, ctx)
+    assert torch.equal(out["grouped"], steps)
     jctx = JDequantContext({}, jcfg.param_dtype, int8_compute=True,
                            moe_dispatch="einsum")
     want, _ = jax.jit(lambda p, s, t: jdec.decode_step(p, s, t, jcfg, ctx=jctx))(

@@ -37,7 +37,7 @@ def _pools(bits, seed=0):
     tpc = tpaged.PagedKVConfig.build(tcfg, 8, 3, page_size=PAGE, num_pages=P,
                                      kv_bits=bits)
     jl = jpaged.init_paged_kv(jcfg, jpc, 3).layers["0"]
-    tl = tpaged.init_paged_kv(tcfg, tpc, 3).layers["0"]
+    tl = tpaged.init_paged_kv(tcfg, tpc, 3, device="cpu").layers["0"]
     rng = np.random.default_rng(seed)
     if bits >= 16:
         k, v = (rng.normal(size=jl.k.shape).astype(np.float32) for _ in "kv")

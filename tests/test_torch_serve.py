@@ -124,22 +124,31 @@ def test_entry_points_raise_without_gpu(packed, monkeypatch):
 @pytest.mark.parametrize("bad", [dict(spec=object()), dict(obs=object()),
                                  dict(mesh=object())])
 def test_unsupported_engine_options_raise(packed, bad):
-    """Options not ported yet raise NotImplementedError; a mesh that is
-    not a TPMesh raises ValueError naming make_tp_mesh."""
+    """Observability is not ported yet (NotImplementedError); a spec that
+    is not a SpecConfig raises TypeError, a mesh that is not a TPMesh
+    ValueError naming make_tp_mesh."""
     _, _, tcfg, tq = packed
-    exc, match = ((ValueError, "make_tp_mesh") if "mesh" in bad
-                  else (NotImplementedError, "not ported"))
+    exc, match = {"spec": (TypeError, "SpecConfig"),
+                  "obs": (NotImplementedError, "not ported"),
+                  "mesh": (ValueError, "make_tp_mesh")}[next(iter(bad))]
     with pytest.raises(exc, match=match):
         TEngine(tq, tcfg, TEngineConfig(**dict(ECFG, **bad)), device="cpu")
 
 
 def test_sampled_decoding_and_other_families_raise(packed):
+    """Sampled decoding runs (its tokens in the vocab, the same on a
+    second run); the ssm family still raises."""
     _, _, tcfg, tq = packed
     eng = TEngine(tq, tcfg, TEngineConfig(**ECFG), device="cpu")
-    reqs = poisson_requests(tcfg, 1, rate=1.0, prompt_len=4, gen_len=4,
-                            sampling=SamplingParams(temperature=0.7))
-    with pytest.raises(NotImplementedError):
-        eng.run(reqs)
+
+    def reqs():
+        return poisson_requests(tcfg, 1, rate=1.0, prompt_len=4, gen_len=4,
+                                sampling=SamplingParams(temperature=0.7))
+    a, _ = eng.run(reqs())
+    b, _ = eng.run(reqs())
+    assert a[0].num_generated == 4
+    assert ((a[0].output_tokens >= 0) & (a[0].output_tokens < tcfg.vocab_size)).all()
+    np.testing.assert_array_equal(a[0].output_tokens, b[0].output_tokens)
     ssm = ModelConfig(name="m", family="ssm", num_layers=1, d_model=8)
     with pytest.raises(NotImplementedError):
         TEngine(tq, ssm, TEngineConfig(), device="cpu")
