@@ -20,13 +20,19 @@ Phases, in order; any failure exits non-zero:
      (bf16/fp16 past D = 256: the split-head-dim kernel up to 512, one
      launch with no input copy when a row is whole 16-byte chunks), and
      that every route of the per-channel fake-quant plan is checked;
-  3a. the packed paged decode of the internlm2_1_8b, olmoe_1b_7b and
-     deepseek_moe_16b smoke configs on the card against the CPU plain path;
-  3b. drive each main path at full width — internlm2_1_8b (dense) and
-     olmoe_1b_7b (MoE, grouped_qmm) — seeded init -> FIT report -> W4/W8
-     bit allocation -> packed QTensors -> FIT KV widths -> paged serving
-     of Poisson requests (greedy), with every kernel launch counter reset
-     just before each path and read just after its serving run;
+  3a. the packed paged decode of every ported config's smoke variant
+     (SMOKE_ARCHS) on the card against the CPU plain path;
+  3b. drive each main path at full width — internlm2_1_8b,
+     llama3_8b, phi3_mini_3_8b and minitron_4b (dense; the last two cut
+     to 8 layers), olmoe_1b_7b and deepseek_moe_16b (MoE, grouped_qmm) —
+     seeded init -> FIT report
+     (its peak memory within 1.3 x the parameter bytes + 2 GB; for
+     internlm2_1_8b again on a two-shard data-parallel mesh, equal within
+     1e-5) -> W4/W8 bit allocation -> packed QTensors -> FIT KV widths ->
+     paged serving of Poisson requests (greedy; alone == batched for the
+     dense paths, grouped == dense for MoE), with every kernel launch
+     counter reset just before each path and read just after its
+     serving run;
   3c. the serving CLI's path at full width: repro_torch.launch.serve.serve()
      on internlm2_1_8b with int8-backed W8 weights through int8_matmul,
      paged int8 KV with a 24-token shared prefix (prefix sharing and a
@@ -59,6 +65,10 @@ Phases, in order; any failure exits non-zero:
      non-binding capacity); the CLI's int8-backed path sampled and
      speculative, in process and in a subprocess; tok/s in turns, the
      accept rate beside the FIT proxies, the sampler's cost;
+  3h. FIT against the Hessian: internlm2_1_8b at full width and 4
+     layers, one batch of 4 x 128: the EF traces and Hutchinson's
+     per-block Hessian traces (8 probes, fp32, seeded), each timed, their
+     Spearman correlation, finite and deterministic under one seed;
   4. print the kernels line and the main-path metrics;
   5. print {"ok": true, "device": {...}} as the last line.
 
@@ -134,20 +144,25 @@ def bound_ms(nbytes: float, ops: float, peak_ops: float):
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
 
+# the (1, N) rows the main paths' weight traces give the kernel, one
+# block and one sample at a time: minitron_4b's embedding/head
+# (256000 x 3072), llama3_8b's (128256 x 4096), a norm's scale
+EF_PATH_ROWS = (786_432_000, 525_336_576, 2048)
+
+
 def check_ef_sqnorm(timer, gen, rows):
     from repro_torch.kernels import ef_sqnorm as kmod, ref
 
-    for n in (16_777_216, 189_530_112):        # mlp block; embed/head block
-        g = torch.randn((4, n), generator=gen, device="cuda",
-                        dtype=torch.float32).mul_(1e-3).to(torch.bfloat16)
+    def check(g, label):
+        b, n = g.shape
         got = kmod.ef_sqnorm(g)
         want = ref.ef_sqnorm(g)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         if not torch.allclose(got, want, rtol=1e-4, atol=0):
-            raise AssertionError(f"ef_sqnorm (4, {n}): {got} vs {want}")
-        b_ms, b_by = bound_ms(4 * n * 2 + 16, 2 * 4 * n, FP32_FLOPS)
-        row = {"kernel": "ef_sqnorm", "shape": f"(4, {n}) bf16",
+            raise AssertionError(f"ef_sqnorm {label}: {got} vs {want}")
+        b_ms, b_by = bound_ms(b * n * 2 + 4 * b, 2 * b * n, FP32_FLOPS)
+        row = {"kernel": "ef_sqnorm", "shape": f"{label} bf16",
                "max_abs_err": err,
                "rel_err": (err / want.abs().max().item()),
                "ms": timer(lambda: kmod.ef_sqnorm(g)),
@@ -156,12 +171,36 @@ def check_ef_sqnorm(timer, gen, rows):
                "bound_ms": b_ms, "bound_by": b_by}
         rows.append(row)
         log(json.dumps(row))
+        return got
+
+    for n in (16_777_216, 189_530_112):        # mlp block; embed/head block
+        g = torch.randn((4, n), generator=gen, device="cuda",
+                        dtype=torch.float32).mul_(1e-3).to(torch.bfloat16)
+        got = check(g, f"(4, {n})")
+        # a (1, N) row has the bits of that row of the (4, N) call: the
+        # per-leaf reduction gives the traces the batched one gave
+        alone = torch.cat([kmod.ef_sqnorm(g[i:i + 1]) for i in range(4)])
+        if not torch.equal(alone, got):
+            raise AssertionError(f"ef_sqnorm (4, {n}): four (1, N) calls "
+                                 f"{alone} != one (4, N) call {got}")
+        del g
+    for n in EF_PATH_ROWS:
+        g = torch.randn((1, n), generator=gen, device="cuda",
+                        dtype=torch.float32).mul_(1e-3).to(torch.bfloat16)
+        check(g, f"(1, {n})")
         del g
 
 
 QMM_SHAPES = [("wq/wo", 2048, 2048), ("wk/wv", 2048, 1024),
               ("w_up/w_gate", 2048, 8192), ("w_down", 8192, 2048),
               ("head", 2048, 92544)]
+# the rest of the dense family's main paths: llama3_8b's head (128,256
+# columns) and w_down (K = 14336, 112 groups: a two-pass fold),
+# minitron_4b's 256,000-wide head (24 groups) and w_down (72 groups),
+# phi3_mini_3_8b's head (24 groups, 32,064 columns)
+QMM_PATH_SHAPES = [("llama3 head", 4096, 128256), ("llama3 w_down", 14336, 4096),
+                   ("minitron head", 3072, 256000), ("minitron w_down", 9216, 3072),
+                   ("phi3 head", 3072, 32064)]
 
 
 def check_one_launch(kmod, xq, qt, xs) -> dict:
@@ -181,18 +220,19 @@ def check_one_launch(kmod, xq, qt, xs) -> dict:
             "allocated_bytes": nbytes}
 
 
-def check_qmm(timer, gen, rows):
+def check_qmm(timer, gen, rows, shapes=QMM_SHAPES, widths=(8, 6, 4, 3),
+              ms=(1, 4)):
     """qmm against its plain version (terms ``torch.equal``, the output
     within 1e-5) and its one-launch contract."""
     from repro_torch.kernels import qmm as kmod, ref
     from repro_torch.qtensor import quantize
 
-    for name, k, n in QMM_SHAPES:
+    for name, k, n in shapes:
         w = torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5
-        for bits in (8, 6, 4, 3):
+        for bits in widths:
             qt = quantize(w, bits, group_size=128)
             wd = qt.dequantize(torch.bfloat16)
-            for m in (1, 4):
+            for m in ms:
                 xq = torch.randint(-127, 128, (m, k), generator=gen,
                                    device="cuda", dtype=torch.int32).to(torch.int8)
                 xs = torch.rand(m, generator=gen, device="cuda") * 0.02 + 1e-3
@@ -329,6 +369,10 @@ def check_qmm_groups(timer, gen, rows):
 # kernel's byte-wise staging)
 GROUPED_SHAPES = [("w_up/w_gate", 2048, 1024, 128), ("w_down", 1024, 2048, 128),
                   ("ragged", 960, 1001, 120)]
+# deepseek_moe_16b's expert projections (64 experts, d_ff 1408): N = 1408
+# (11 column tiles of 128) and K = 1408 (11 groups)
+DEEPSEEK_GROUPED_SHAPES = [("deepseek w_up/w_gate", 2048, 1408, 128),
+                           ("deepseek w_down", 1408, 2048, 128)]
 # decode/prefill capacity; ragged; report batch; a 512-token prefill at
 # capacity factor 1.25 (512 * 1.25 * top-8 / 64 experts), two 64-row tiles
 GROUPED_CAPS = (1, 5, 20, 80)
@@ -349,17 +393,18 @@ def _grouped_counts(gen, s: int, c: int) -> torch.Tensor:
     return cnt
 
 
-def check_grouped_qmm(timer, gen, rows):
+def check_grouped_qmm(timer, gen, rows, shapes=GROUPED_SHAPES,
+                      widths=(8, 6, 4, 3), caps=GROUPED_CAPS):
     from repro_torch.kernels import grouped_qmm as kmod, qmm as kqmm, ref
     from repro_torch.qtensor import expert_slice, quantize_experts
 
     s = N_EXPERTS
-    for name, k, n, gsize in GROUPED_SHAPES:
+    for name, k, n, gsize in shapes:
         w = torch.randn((s, k, n), generator=gen, device="cuda") / k ** 0.5
-        for bits in (8, 6, 4, 3):
+        for bits in widths:
             qt = quantize_experts(w, bits, group_size=gsize)
             wd = qt.dequantize(torch.bfloat16)
-            for c in GROUPED_CAPS:
+            for c in caps:
                 xq = torch.randint(-127, 128, (s, c, k), generator=gen,
                                    device="cuda", dtype=torch.int32).to(torch.int8)
                 xs = torch.rand((s, c, 1), generator=gen, device="cuda") * 0.02 + 1e-3
@@ -965,9 +1010,22 @@ PHASE2 = [("ef_sqnorm", check_ef_sqnorm, {}),
            {"kvh": 4, "g": 4, "widths": (8, 16)}),
           ("paged_attention", check_paged_attention,
            {"kvh": 4, "g": 2, "dh": 576, "widths": (8, 16)}),
+          # the dense family's GQA: llama3_8b G = 4 over 8 kv heads,
+          # minitron_4b G = 3 (not a power of two), phi3_mini_3_8b G = 1 at
+          # Dh = 96 over 32 kv heads
+          ("paged_attention", check_paged_attention,
+           {"kvh": 8, "g": 4, "widths": (8, 4, 16)}),
+          ("paged_attention", check_paged_attention,
+           {"kvh": 8, "g": 3, "widths": (8, 4, 16)}),
+          ("paged_attention", check_paged_attention,
+           {"kvh": 32, "g": 1, "dh": 96, "widths": (8, 4, 16)}),
           ("qmm", check_qmm, {}),
+          ("qmm", check_qmm, {"shapes": QMM_PATH_SHAPES, "widths": (8, 4),
+                              "ms": (4,)}),
           ("qmm_groups", check_qmm_groups, {}),
           ("grouped_qmm", check_grouped_qmm, {}),
+          ("grouped_qmm", check_grouped_qmm,
+           {"shapes": DEEPSEEK_GROUPED_SHAPES, "widths": (8, 4), "caps": (1, 20)}),
           ("int8_matmul", check_int8_matmul, {}),
           ("fake_quant", check_fake_quant, {}),
           ("flash_attention", check_flash_attention, {})]
@@ -1046,16 +1104,22 @@ def main() -> int:
             f"plain path (max err {errs})")
         result["main_paths"] = {}
         kept = {}
-        for arch, microbatch in MAIN_PATHS:
+        for arch, *path_args in MAIN_PATHS:
             gc.collect()
             torch.cuda.empty_cache()
             t0 = time.perf_counter()
-            result["main_paths"][arch], kept[arch] = main_path(arch, microbatch)
-            # parked on the host while the next path measures its memory
-            kept[arch]["qparams"] = tree_to(kept[arch]["qparams"], "cpu")
+            result["main_paths"][arch], keep = main_path(arch, *path_args)
+            if arch in REUSED_PATHS:
+                # parked on the host while the next path measures its memory
+                keep["qparams"] = tree_to(keep["qparams"], "cpu")
+                kept[arch] = keep
+            del keep
             mp = result["main_paths"][arch]
-            log(f"phase 3b: {arch} main path in {time.perf_counter() - t0:.1f} s, "
-                f"peak device memory {mp['peak_mem_gb']:.1f} GB")
+            mp["wall_s"] = time.perf_counter() - t0
+            log(f"phase 3b: {arch} main path in {mp['wall_s']:.1f} s, report "
+                f"peak {mp['report_peak_mem_gb']:.2f} GB for "
+                f"{mp['param_bytes'] / 1e9:.2f} GB of params, peak device "
+                f"memory {mp['peak_mem_gb']:.1f} GB")
             log(json.dumps({"main_path": mp}))
         # phase 3f serves phase 3b's params again, sharded: it runs here so
         # they are freed before the later phases measure their memory
@@ -1095,6 +1159,12 @@ def main() -> int:
         log(f"phase 3e: QAT training path in {time.perf_counter() - t0:.1f} s, "
             f"peak device memory {tp['peak_mem_gb']:.1f} GB")
         log(json.dumps({"train_path": tp}))
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        result["hessian_path"] = hp = hessian_path()
+        log(f"phase 3h: FIT against the Hessian in {time.perf_counter() - t0:.1f} s")
+        log(json.dumps({"hessian_path": hp}))
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1104,15 +1174,22 @@ def main() -> int:
     mps = result["main_paths"]
     paths = ([mp["launches"] for mp in mps.values()]
              + [tpp["launches"], spp["launches"], cp["launches"], lp["launches"],
-                tp["launches"]])
+                tp["launches"], hp["launches"]])
     log(json.dumps({"kernels": kernels_line(rows, paths)}))
     for arch, mp in mps.items():
-        log(f"[{card}] {arch}: report {mp['report_s']:.2f} s; packed weights "
+        log(f"[{card}] {arch} ({mp['layers']} layers): report "
+            f"{mp['report_s']:.2f} s, report_peak_mem_gb "
+            f"{mp['report_peak_mem_gb']:.2f} beside param_bytes "
+            f"{mp['param_bytes'] / 1e9:.2f} GB; packed weights "
             f"{mp['packed_bytes'] / 1e9:.3f} GB vs FIT-predicted "
             f"{mp['predicted_bytes'] / 1e9:.3f} GB; decode "
             f"{mp['decode_tokens_per_s']:.1f} tok/s; TTFT p50 "
             f"{mp['ttft_p50']:.3f} s p95 {mp['ttft_p95']:.3f} s; peak "
-            f"{mp['peak_mem_gb']:.1f} GB")
+            f"{mp['peak_mem_gb']:.1f} GB; path {mp['wall_s']:.1f} s")
+    dpr = mps[DP_REPORT_ARCH]["dp_report"]
+    log(f"[{card}] {DP_REPORT_ARCH} report on a 2-shard mesh (one card): "
+        f"{dpr['report_s']:.2f} s, max rel err vs no mesh {dpr['max_rel_err']:.2e}")
+    extra = {a: mp for a, mp in mps.items() if "step_before_profile" in mp}
     ab = tpp["step_ab"]["median_ms"]
     log(f"[{card}] decode step at batch 4, in turns: plain {ab['plain']:.1f} ms, "
         f"tp=1 mesh {ab['tp=1 mesh']:.1f} ms, tp=2 on one card {ab['tp=2']:.1f} ms")
@@ -1120,7 +1197,7 @@ def main() -> int:
         f"{arch} 3b {mp['step_before_profile']['median_ms']['plain']:.1f} before "
         f"/ {mp['step_after_empty_profile']['median_ms']['plain']:.1f} after an "
         f"empty / {mp['step_after_profile']['median_ms']['plain']:.1f} after its "
-        "serving profile" for arch, mp in mps.items())
+        "serving profile" for arch, mp in extra.items())
         + f"; 3f start {ab['plain']:.1f}, 3f end "
         f"{tpp['plain_step_after']['median_ms']['plain']:.1f}")
     log(f"[{card}] phase 3f seconds: " + ", ".join(
@@ -1176,6 +1253,11 @@ def main() -> int:
         f"{tp['peak_mem_gb']:.1f} GB, device busy "
         f"{tp['profile']['device_busy_share']:.3f}, losses "
         + " ".join(f"{v:.4f}" for v in tp["losses"]))
+    log(f"[{card}] 3h {hp['arch']} ({hp['layers']} layers, batch "
+        f"{hp['batch']}x{hp['seq']}): EF traces {hp['ef_s']:.2f} s, "
+        f"Hutchinson ({hp['probes']} probes, fp32) {hp['hutchinson_s']:.2f} s; "
+        f"Spearman of the {hp['blocks']} per-block traces "
+        f"{hp['spearman']:.4f}")
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -1186,7 +1268,7 @@ def main() -> int:
 KERNELS = [
     # name, source, TPU kernel it replaces, representative phase-2 row
     ("ef_sqnorm", "src/repro_torch/kernels/csrc/ef_sqnorm.cu",
-     "src/repro/kernels/ef_sqnorm.py:34", "(4, 189530112) bf16"),
+     "src/repro/kernels/ef_sqnorm.py:34", "(1, 786432000) bf16"),
     ("qmm", "src/repro_torch/kernels/csrc/qmm.cu",
      "src/repro/kernels/qmm.py:153", "head 2048x92544 W4 M=4"),
     ("qmm_groups", "src/repro_torch/kernels/csrc/qmm.cu",
@@ -1207,9 +1289,19 @@ KERNELS = [
      "src/repro/kernels/flash_attention.py:68",
      "causal S=T=2048 B=4 H=16 D=128 bfloat16"),
 ]
-SMOKE_ARCHS = ("internlm2_1_8b", "olmoe_1b_7b", "deepseek_moe_16b")
-# full-width main paths (arch, report microbatch), driven in this order
-MAIN_PATHS = (("internlm2_1_8b", 4), ("olmoe_1b_7b", 2))
+SMOKE_ARCHS = ("internlm2_1_8b", "olmoe_1b_7b", "deepseek_moe_16b", "llama3_8b",
+               "phi3_mini_3_8b", "minitron_4b")
+# full-width main paths (arch, Poisson requests, with the profiler and
+# decode-step A/B extras, layers: None for full depth), driven in this
+# order; phases 3f and 3g reuse the first two; phi3 is cut to 8 of its
+# 32 layers to keep the script inside its time limit; minitron keeps
+# its full depth, where its report peak sits nearest the memory bound
+MAIN_PATHS = (("internlm2_1_8b", 8, True, None), ("olmoe_1b_7b", 8, True, None),
+              ("llama3_8b", 8, False, None), ("deepseek_moe_16b", 8, False, None),
+              ("phi3_mini_3_8b", 4, False, 8), ("minitron_4b", 4, False, None))
+REUSED_PATHS = ("internlm2_1_8b", "olmoe_1b_7b")
+# the data-parallel report: this path's report again on a two-shard mesh
+DP_REPORT_ARCH = "internlm2_1_8b"
 # the kernels each main path must launch ("cli": the serving CLI's
 # int8-backed path, which must launch none of CLI_IDLE_KERNELS)
 PATH_KERNELS = {"dense": ("ef_sqnorm", "qmm", "paged_attention"),
@@ -1224,7 +1316,9 @@ PATH_KERNELS = {"dense": ("ef_sqnorm", "qmm", "paged_attention"),
                 "sampled_tp": ("qmm_groups", "qmm", "paged_attention"),
                 "spec": ("qmm", "paged_attention"),
                 "spec_moe": ("qmm", "paged_attention", "grouped_qmm"),
-                "spec_int8": ("int8_matmul", "paged_attention")}
+                "spec_int8": ("int8_matmul", "paged_attention"),
+                # phase 3h: the FIT report's EF traces beside Hutchinson
+                "hessian": ("ef_sqnorm",)}
 CLI_IDLE_KERNELS = ("qmm", "qmm_groups", "grouped_qmm", "ef_sqnorm")
 # each kernel's launch counter: (module under repro_torch.kernels, attribute)
 COUNTERS = {"ef_sqnorm": ("ef_sqnorm", "launches"), "qmm": ("qmm", "launches"),
@@ -1293,12 +1387,19 @@ def check_small_reference(arch: str) -> float:
     return err
 
 
-def main_path(arch: str, microbatch: int):
+def main_path(arch: str, n_requests: int = 8, extras: bool = True,
+              layers=None):
     """One full-width main path; returns its metrics and what phase 3f
     needs to serve the same requests sharded. Every kernel counter is set
-    to 0 at the start and read right after the serving run."""
+    to 0 at the start and read right after the serving run. The report's
+    peak memory must stay within 1.3 x the parameter bytes + 2 GB (the
+    per-sample gradient tree never exists whole). ``extras``: the
+    decode-step A/B around the first profiler sessions and the serving
+    profile. ``layers``: the depth, if cut (full width all the same)."""
     from repro_torch.configs import get_config
     from repro_torch.core.report import build_report
+    from repro_torch.launch.mesh import TPMesh
+    from repro_torch.utils.pytree import tree_bytes
     from repro_torch.data.synthetic import LMStreamConfig, lm_batches
     from repro_torch.kvcache.fit import allocate_kv_bits, kv_report_fns
     from repro_torch.kvcache.paged import dense_kv_bytes
@@ -1310,7 +1411,9 @@ def main_path(arch: str, microbatch: int):
     from repro_torch.serve.quantized import bit_config_from_report, quantize_params
 
     cfg = get_config(arch)
-    res = {"arch": arch, "layers": cfg.num_layers, "microbatch": microbatch}
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    res = {"arch": arch, "layers": cfg.num_layers}
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
 
@@ -1318,23 +1421,48 @@ def main_path(arch: str, microbatch: int):
     params = init_params(cfg, seed=0)
     torch.cuda.synchronize()
     res["init_s"] = time.perf_counter() - t0
+    res["param_bytes"] = tree_bytes(params)
+    # the init's own peak holds fp32 temporaries of the embedding and
+    # the head; the report's is measured apart from it
+    res["init_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     stream = lm_batches(LMStreamConfig(vocab_size=cfg.vocab_size, seq_len=128,
                                        global_batch=4, seed=0))
     batches = [next(stream) for _ in range(2)]
     tap_loss, tap_shapes, act_fn = kv_report_fns(cfg)
+
+    def report_on(mesh=None):
+        return build_report(lambda p, b: loss_fn(p, b, cfg), tap_loss,
+                            lambda b: tap_shapes(params, b), act_fn, params,
+                            batches, tolerance=None, max_batches=2, mesh=mesh)
+
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    report = build_report(lambda p, b: loss_fn(p, b, cfg), tap_loss,
-                          lambda b: tap_shapes(params, b), act_fn, params,
-                          batches, microbatch=microbatch, tolerance=None,
-                          max_batches=2)
+    report = report_on()
     torch.cuda.synchronize()
     res["report_s"] = time.perf_counter() - t0
     res["report_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    limit = 1.3 * res["param_bytes"] / 1e9 + 2.0
+    if res["report_peak_mem_gb"] > limit:
+        raise AssertionError(f"{arch} report peak {res['report_peak_mem_gb']:.2f} "
+                             f"GB > 1.3 x params + 2 GB = {limit:.2f} GB")
     traces = list(report.weight_traces.values()) + list(report.act_traces.values())
     if not all(math.isfinite(t) and t > 0 for t in traces):
         raise AssertionError("non-finite or non-positive EF trace")
     res["n_weight_blocks"] = len(report.weight_traces)
     res["n_act_sites"] = len(report.act_traces)
+    if arch == DP_REPORT_ARCH:
+        # the data-parallel mode: the batch in two shards on this card,
+        # per-block sums added in shard order
+        t0 = time.perf_counter()
+        dp = report_on(TPMesh([torch.device("cuda", 0)] * 2))
+        torch.cuda.synchronize()
+        err = max(abs(dp.weight_traces[k] - v) / abs(v)
+                  for k, v in report.weight_traces.items())
+        if list(dp.weight_traces) != list(report.weight_traces) or err > 1e-5:
+            raise AssertionError(f"{arch} report on a 2-shard mesh differs from "
+                                 f"the report without one (max rel err {err})")
+        res["dp_report"] = {"shards": 2, "report_s": time.perf_counter() - t0,
+                            "max_rel_err": err}
 
     policy = QuantPolicy(allowed_bits=(8, 4))
     bit_cfg = bit_config_from_report(report, policy, avg_bits=6.0)
@@ -1360,7 +1488,7 @@ def main_path(arch: str, microbatch: int):
                     kv_ranges=report.act_ranges)
 
     def requests():
-        return poisson_requests(cfg, 8, rate=4.0, prompt_len=(16, 64),
+        return poisson_requests(cfg, n_requests, rate=4.0, prompt_len=(16, 64),
                                 gen_len=(8, 32), seed=1)
 
     t0 = time.perf_counter()
@@ -1368,8 +1496,8 @@ def main_path(arch: str, microbatch: int):
     torch.cuda.synchronize()
     res["serve_s"] = time.perf_counter() - t0
     res["launches"] = read_counts()
-    if len(fin) != 8:
-        raise AssertionError(f"{len(fin)} of 8 requests finished")
+    if len(fin) != n_requests:
+        raise AssertionError(f"{len(fin)} of {n_requests} requests finished")
     for r in fin:
         if r.num_generated != r.max_new_tokens:
             raise AssertionError(f"request {r.id}: {r.num_generated} of "
@@ -1388,26 +1516,29 @@ def main_path(arch: str, microbatch: int):
             qparams, cfg, ecfg, kv_bits, report.act_ranges)
     else:
         # one request served alone equals the same request in the batch
-        for rid in (0, 5):
+        for rid in (0, n_requests - 3):
             alone = [r for r in requests() if r.id == rid]
             alone[0].arrival_time = 0.0
             got, _ = engine.run(alone)
             if not (got[0].output_tokens == fin[rid].output_tokens).all():
                 raise AssertionError(f"request {rid}: alone != batched")
-    # the plain decode step around the first profiler sessions of the
-    # process, one around no work, then the serving profile, to hold
-    # against phase 3f's (``decode_step_ab``)
-    res["step_before_profile"] = decode_step_ab({"plain": engine})
-    device_kernels(lambda: None)
-    res["step_after_empty_profile"] = decode_step_ab({"plain": engine})
-    res["profile"] = profile_serving(engine, cfg)
-    res["step_after_profile"] = decode_step_ab({"plain": engine})
+    if extras:
+        # the plain decode step around the first profiler sessions of the
+        # process, one around no work, then the serving profile, to hold
+        # against phase 3f's (``decode_step_ab``)
+        res["step_before_profile"] = decode_step_ab({"plain": engine})
+        device_kernels(lambda: None)
+        res["step_after_empty_profile"] = decode_step_ab({"plain": engine})
+        res["profile"] = profile_serving(engine, cfg)
+        res["step_after_profile"] = decode_step_ab({"plain": engine})
     s = metrics.summary()
     res.update({k: s[k] for k in ("decode_tokens_per_s", "prefill_tokens_per_s",
                                   "ttft_p50", "ttft_p95", "e2e_p50",
                                   "token_latency_p50_ms", "decode_tokens",
                                   "kv_peak_bytes", "kv_pool_bytes")})
-    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # the peak counter was reset before and after the report
+    res["peak_mem_gb"] = max(res["init_peak_mem_gb"], res["report_peak_mem_gb"],
+                             torch.cuda.max_memory_allocated() / 1e9)
     # what phase 3f serves again, sharded: the same params, KV widths,
     # ranges, engine shape, requests and the plain engine's streams
     keep = {"cfg": cfg, "qparams": qparams, "kv_bits": kv_bits,
@@ -2375,6 +2506,78 @@ def run_train_cli_smoke() -> dict:
         raise AssertionError(f"launch.train CLI: LATEST is {latest!r}")
     return {"wall_s": time.perf_counter() - t0, "latest": latest,
             "final_log": proc.stderr.strip().splitlines()[-1][-160:]}
+
+
+HESSIAN_LAYERS = 4      # depth of phase 3h's model (full width)
+HESSIAN_PROBES = 8
+
+
+def hessian_path(arch: str = "internlm2_1_8b", batch: int = 4,
+                 seq: int = 128) -> dict:
+    """Phase 3h, FIT against the Hessian baseline on the card: ``arch`` at
+    full width cut to HESSIAN_LAYERS layers, one batch of ``batch`` x
+    ``seq``; the FIT report's EF weight traces (one backward a sample) and
+    ``hutchinson_block_traces`` (HESSIAN_PROBES Rademacher probes from a
+    seeded generator, fp32, reverse-over-reverse HVPs), each timed; the
+    Spearman rank correlation of the per-block traces (a number, not a
+    gate: the weights are random). Every trace must be finite, and two
+    Hutchinson runs of one seed equal. Counters reset just before and
+    read just after."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import (ef_trace_weights, hutchinson_block_traces,
+                                  spearman)
+    from repro_torch.core.report import to_device_batch
+    from repro_torch.data.synthetic import LMStreamConfig, lm_batches
+    from repro_torch.models import init_params, loss_fn
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=HESSIAN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    params = init_params(cfg, seed=0)
+    data = to_device_batch(next(lm_batches(LMStreamConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch, seed=0))),
+        torch.device("cuda"))
+
+    def loss(p, z):
+        return loss_fn(p, z, cfg)
+
+    t0 = time.perf_counter()
+    ef = ef_trace_weights(loss, params, data)
+    torch.cuda.synchronize()
+    ef_s = time.perf_counter() - t0
+    runs = []
+    for _ in range(2):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hut, samples = hutchinson_block_traces(loss, params, data, gen,
+                                               iters=HESSIAN_PROBES)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0, hut,
+                     {k: v.tolist() for k, v in samples.items()}))
+    launches = read_counts()
+    (hut_s, hut, samples), (hut_s2, hut2, samples2) = runs
+    names = list(ef)
+    if list(hut) != names:
+        raise AssertionError("3h: EF and Hessian traces name other blocks")
+    values = list(ef.values()) + [x for v in samples.values() for x in v]
+    if not all(math.isfinite(x) for x in values):
+        raise AssertionError("3h: a non-finite EF or Hessian trace")
+    if hut2 != hut or samples2 != samples:
+        raise AssertionError("3h: two Hutchinson runs of one seed differ")
+    for name in PATH_KERNELS["hessian"]:
+        if launches[name] <= 0:
+            raise AssertionError(f"3h: kernel {name} was not launched")
+    rho = spearman([ef[k] for k in names], [hut[k] for k in names])
+    top = sorted(names, key=lambda k: ef[k], reverse=True)[:5]
+    return {"arch": arch, "layers": cfg.num_layers, "batch": batch, "seq": seq,
+            "probes": HESSIAN_PROBES, "blocks": len(names), "ef_s": ef_s,
+            "hutchinson_s": hut_s, "hutchinson_s_again": hut_s2,
+            "spearman": rho, "deterministic": True,
+            "top_ef_blocks": {k: {"ef": ef[k], "hessian": hut[k]} for k in top},
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches}
 
 
 def check_grouped_equals_dense(qparams, cfg, ecfg, kv_bits, ranges) -> dict:

@@ -1,16 +1,35 @@
 """Model configurations (port of ``repro.configs``).
 
 ``ModelConfig`` is the same frozen dataclass as the reference's;
-``param_dtype`` returns a torch dtype. Only the architectures the port
-serves so far are registered here.
+``param_dtype`` returns a torch dtype. ``ARCH_IDS`` registers the
+architectures the port serves so far (the dense and MoE families), in
+the reference's order; the ssm, hybrid, audio and vlm families are not
+ported yet. ``SHAPES`` maps the assigned input-shape ids to (seq_len,
+global_batch, kind).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,14 +85,42 @@ class ModelConfig:
         return {"bfloat16": torch.bfloat16, "float32": torch.float32}[self.dtype]
 
 
-ARCH_IDS = ["internlm2_1_8b", "olmoe_1b_7b", "deepseek_moe_16b"]
+ARCH_IDS = [
+    "olmoe_1b_7b",
+    "deepseek_moe_16b",
+    "minitron_4b",
+    "llama3_8b",
+    "phi3_mini_3_8b",
+    "internlm2_1_8b",
+]
+
+_ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
+
+
+def _module(name: str):
+    key = _ALIASES.get(name, name).replace("-", "_")
+    return importlib.import_module(f"repro_torch.configs.{key}")
 
 
 def get_config(name: str) -> ModelConfig:
-    key = name.replace("-", "_")
-    return importlib.import_module(f"repro_torch.configs.{key}").CONFIG
+    return _module(name).CONFIG
 
 
 def smoke_config(name: str) -> ModelConfig:
-    key = name.replace("-", "_")
-    return importlib.import_module(f"repro_torch.configs.{key}").SMOKE
+    return _module(name).SMOKE
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}
+
+
+def cells(multi_pod: bool = False):
+    """All (arch, shape) dry-run cells, honouring per-arch skips."""
+    out = []
+    for a in ARCH_IDS:
+        cfg = get_config(a)
+        for s in SHAPES.values():
+            if s.name in cfg.skip_shapes:
+                continue
+            out.append((a, s.name))
+    return out

@@ -2,10 +2,24 @@
 
 Paper (Prop. 5):  Tr(Î(θ)) = (1/N) Σ_i ||∇_θ f(z_i, θ)||².
 
-Weight traces: per-sample gradients come from a loop of single-sample
-``torch.autograd.grad`` calls over each microbatch; every block's
-per-sample gradients then reach ``ops.ef_sqnorm`` as ONE (microbatch, N)
-matrix, kept in the parameter dtype (the kernel widens to fp32 inside).
+Weight traces: one backward a sample. Each parameter block's gradient
+is reduced to its squared norm (``ops.ef_sqnorm`` on a (1, N) row, kept
+in the parameter dtype; the kernel widens to fp32 inside) the moment
+autograd accumulates it, and freed before the next block's: a per-sample
+gradient tree never exists whole, so the peak is the parameters, one
+sample's activations and the largest block's gradient, whatever the
+batch or the microbatch. ``ef_sqnorm`` reduces each row on its own, so a
+(1, N) row has the bits that row of a (B, N) call has.
+
+Batches are any pytree (dicts, tuples, lists, NamedTuples) whose leaves
+share the leading batch dim, as in the reference.
+
+Data-parallel mode (``mesh``, a ``launch.mesh.TPMesh``): the batch is
+split into ``mesh.size`` contiguous shards, shard i runs on
+``devices[i]`` with the parameters replicated there (shared where
+devices coincide), each shard sums its per-block squared norms in fp32,
+and the sums are added on the lead device in shard order, then divided
+by N.
 
 Activation traces: zero-valued additive taps at the activation sites;
 sample i's loss depends only on its own activation row, so ONE batched
@@ -20,57 +34,135 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kops
-from repro_torch.utils.pytree import map_with_names, named_leaves
+from repro_torch.utils.pytree import (
+    map_with_names, named_leaves, tree_leaves, tree_map)
 
 LossFn = Callable[[Any, Any], torch.Tensor]   # (params, batch) -> mean loss
 
 
 def _batch_size(batch) -> int:
-    return next(iter(batch.values())).shape[0]
+    return tree_leaves(batch)[0].shape[0]
 
 
-def _slice(batch, lo: int, hi: int):
-    return {k: v[lo:hi] for k, v in batch.items()}
+def _slice(batch, lo: int, hi: int, device=None):
+    def cut(a):
+        a = a[lo:hi]
+        return a.to(device) if device is not None and isinstance(a, torch.Tensor) else a
+    return tree_map(cut, batch)
+
+
+def _grad_leaves(params) -> Tuple[Dict[str, torch.Tensor], Any]:
+    """Fresh leaves that require grad (sharing the parameters' storage)
+    and the parameter tree rebuilt over them."""
+    leaves = {name: leaf.detach().requires_grad_(True)
+              for name, leaf in named_leaves(params)}
+    return leaves, map_with_names(lambda name, _: leaves[name], params)
+
+
+def _check_args(n: int, mesh, mesh_axis: Optional[str],
+                microbatch: Optional[int]) -> int:
+    """The number of batch shards, after the reference's checks:
+    ``mesh_axis`` names the mesh's one axis, the shards and ``microbatch``
+    divide the batch."""
+    shards = 1 if mesh is None else mesh.size
+    if mesh is not None and mesh_axis not in (None, mesh.axis_name):
+        raise ValueError(f"mesh_axis {mesh_axis!r}: the mesh's only axis is "
+                         f"{mesh.axis_name!r}")
+    if n % shards:
+        raise ValueError(f"batch {n} not divisible by {shards} shards")
+    local = n // shards
+    if local % (microbatch or local):
+        raise ValueError(f"batch {local} not divisible by microbatch {microbatch}")
+    return shards
+
+
+def per_sample_sqnorms(loss_fn: LossFn, params: Any, batch: Any
+                       ) -> Dict[str, torch.Tensor]:
+    """{block: (N,) fp32 squared norms of the N per-sample gradients},
+    one backward a sample, each block's gradient reduced by ``ef_sqnorm``
+    as autograd accumulates it and freed at once. A block the sample's
+    loss does not reach has a zero gradient."""
+    n = _batch_size(batch)
+    leaves, p_grad = _grad_leaves(params)
+    rows: Dict[str, list] = {name: [] for name in leaves}
+
+    def reduce(name):
+        def hook(leaf):
+            rows[name].append(kops.ef_sqnorm(leaf.grad.reshape(1, -1)))
+            leaf.grad = None
+        return hook
+
+    handles = [leaf.register_post_accumulate_grad_hook(reduce(name))
+               for name, leaf in leaves.items()]
+    try:
+        for i in range(n):
+            loss = loss_fn(p_grad, _slice(batch, i, i + 1))
+            torch.autograd.backward(loss, inputs=list(leaves.values()))
+            for name, r in rows.items():
+                if len(r) == i:
+                    r.append(torch.zeros(1, dtype=torch.float32,
+                                         device=leaves[name].device))
+    finally:
+        for h in handles:
+            h.remove()
+    return {name: torch.cat(r) for name, r in rows.items()}
 
 
 def ef_trace_weights(loss_fn: LossFn, params: Any, batch: Any,
-                     microbatch: Optional[int] = None) -> Dict[str, float]:
+                     microbatch: Optional[int] = None, mesh=None,
+                     mesh_axis: Optional[str] = None) -> Dict[str, float]:
     """EF trace per parameter block: (1/N) Σ_i ||∇_θl f(z_i)||².
-    ``loss_fn(params, batch)`` must return the MEAN loss over the batch."""
+    ``loss_fn(params, batch)`` must return the MEAN loss over the batch.
+    ``mesh`` (a ``TPMesh``) runs the data-parallel mode.
+    ``microbatch`` and ``mesh_axis`` are kept for the reference's
+    signature and change neither the result nor the memory: the
+    reduction holds one sample's gradients at a time whatever the
+    microbatch, which must still divide the (per-shard) batch, and a
+    ``TPMesh`` has one axis, which ``mesh_axis`` (None: that axis) must
+    name."""
     n = _batch_size(batch)
-    mb = microbatch or n
-    if n % mb:
-        raise ValueError(f"batch {n} not divisible by microbatch {mb}")
-    leaves = {name: leaf.detach().requires_grad_(True)
-              for name, leaf in named_leaves(params)}
-    p_grad = map_with_names(lambda name, _: leaves[name], params)
-    names = list(leaves)
-    sq: Dict[str, list] = {name: [] for name in names}
-    for lo in range(0, n, mb):
-        per_sample = []
-        for i in range(lo, lo + mb):
-            loss = loss_fn(p_grad, _slice(batch, i, i + 1))
-            per_sample.append(torch.autograd.grad(loss, [leaves[k] for k in names]))
-        for j, name in enumerate(names):
-            g = torch.stack([gs[j] for gs in per_sample])   # (mb, *shape)
-            sq[name].append(kops.ef_sqnorm(g.reshape(mb, -1)))
-            del g
-        del per_sample
-    return {k: float(torch.mean(torch.cat(v))) for k, v in sq.items()}
+    shards = _check_args(n, mesh, mesh_axis, microbatch)
+    if shards > 1:
+        return _ef_trace_weights_sharded(loss_fn, params, batch, mesh)
+    sq = per_sample_sqnorms(loss_fn, params, batch)
+    return {k: float(torch.mean(v)) for k, v in sq.items()}
+
+
+def _ef_trace_weights_sharded(loss_fn: LossFn, params: Any, batch: Any,
+                              mesh) -> Dict[str, float]:
+    """Data-parallel EF trace: contiguous batch shards, one per mesh
+    device, per-block fp32 sums added on the lead device in shard order."""
+    n = _batch_size(batch)
+    local = n // mesh.size
+    replicas: Dict[torch.device, Any] = {}
+    names, parts = None, []
+    for i, dev in enumerate(mesh.devices):
+        if dev not in replicas:
+            replicas[dev] = map_with_names(lambda _, leaf: leaf.to(dev), params)
+        shard = _slice(batch, i * local, (i + 1) * local, dev)
+        sq = per_sample_sqnorms(loss_fn, replicas[dev], shard)
+        names = list(sq)
+        parts.append(torch.stack([torch.sum(sq[k]) for k in names]))
+    sums = mesh.psum(parts).tolist()
+    return {k: v / n for k, v in zip(names, sums)}
 
 
 def ef_trace_weights_streaming(loss_fn: LossFn, params: Any, batches,
                                microbatch: Optional[int] = None,
                                tolerance: Optional[float] = None,
-                               min_batches: int = 4
+                               min_batches: int = 4, mesh=None,
+                               mesh_axis: Optional[str] = None
                                ) -> Tuple[Dict[str, float], int]:
     """Streaming EF trace with the paper's fixed-tolerance early stop
-    (relative SEM of the total trace). Returns (traces, batches_used)."""
+    (relative SEM of the total trace). ``mesh`` shards each batch
+    data-parallel (see ``ef_trace_weights``). Returns (traces,
+    batches_used)."""
     sums: Dict[str, float] = {}
     totals: list = []
     count = 0
     for batch in batches:
-        t = ef_trace_weights(loss_fn, params, batch, microbatch)
+        t = ef_trace_weights(loss_fn, params, batch, microbatch, mesh=mesh,
+                             mesh_axis=mesh_axis)
         count += 1
         for k, v in t.items():
             sums[k] = sums.get(k, 0.0) + v
@@ -89,9 +181,10 @@ def ef_trace_activations(tap_loss_fn, params: Any,
                          batch: Any) -> Dict[str, float]:
     """EF trace per activation site via the tap trick (one backward).
     ``tap_loss_fn(params, taps, batch)`` adds each tap at its site."""
-    n = _batch_size(batch)
-    dev = next(iter(batch.values())).device
-    taps = {k: torch.zeros(shape, dtype=dtype, device=dev, requires_grad=True)
+    first = tree_leaves(batch)[0]
+    n = first.shape[0]
+    taps = {k: torch.zeros(shape, dtype=dtype, device=first.device,
+                           requires_grad=True)
             for k, (shape, dtype) in tap_shapes.items()}
     loss = tap_loss_fn(params, taps, batch)
     grads = torch.autograd.grad(loss, list(taps.values()))
@@ -101,3 +194,20 @@ def ef_trace_activations(tap_loss_fn, params: Any,
         # ∇_{a_i} f_i = N * row_i  ⇒  (1/N) Σ_i N²||row_i||² = N Σ_i ||row_i||²
         out[name] = float(n * torch.sum(rows))
     return out
+
+
+def fisher_trace_exact(loss_fn: LossFn, params: Any, batch: Any
+                       ) -> Dict[str, float]:
+    """Exact EF trace from every per-sample gradient, each taken whole by
+    ``torch.autograd.grad`` and reduced in plain fp32 (tests only)."""
+    n = _batch_size(batch)
+    leaves, p_grad = _grad_leaves(params)
+    sq: Dict[str, list] = {name: [] for name in leaves}
+    for i in range(n):
+        grads = torch.autograd.grad(loss_fn(p_grad, _slice(batch, i, i + 1)),
+                                    list(leaves.values()), allow_unused=True)
+        for name, g in zip(leaves, grads):
+            g32 = (torch.zeros_like(leaves[name]) if g is None else g
+                   ).reshape(-1).to(torch.float32)
+            sq[name].append(torch.sum(g32 * g32))
+    return {k: float(torch.mean(torch.stack(v))) for k, v in sq.items()}

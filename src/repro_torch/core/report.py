@@ -11,14 +11,14 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core.fisher import (
     ef_trace_activations, ef_trace_weights_streaming)
 from repro_torch.core.fit import SensitivityReport
-from repro_torch.utils.pytree import named_leaves
+from repro_torch.utils.pytree import named_leaves, tree_map
 
 
-def to_device_batch(batch: Mapping[str, Any], device) -> Dict[str, torch.Tensor]:
-    """A numpy (or torch) batch dict -> torch tensors on ``device``."""
-    return {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor)
-                               else v).to(device)
-            for k, v in batch.items()}
+def to_device_batch(batch: Any, device) -> Any:
+    """A batch pytree (dicts, tuples, lists of numpy or torch arrays) ->
+    the same structure of torch tensors on ``device``, leaf by leaf."""
+    return tree_map(lambda v: torch.as_tensor(
+        v if isinstance(v, torch.Tensor) else np.asarray(v)).to(device), batch)
 
 
 def weight_ranges(params: Any) -> Dict[str, tuple]:
@@ -52,15 +52,21 @@ def build_report(loss_fn: Callable, tap_loss_fn: Optional[Callable],
                  params: Any, batches: Iterable[Any],
                  microbatch: Optional[int] = None,
                  tolerance: Optional[float] = 0.01, max_batches: int = 64,
+                 mesh=None, mesh_axis: Optional[str] = None,
                  device: DeviceLike = None) -> SensitivityReport:
     """EF traces (weights + activations) and calibration ranges over up
-    to ``max_batches`` batches, moved to ``device`` (default: the GPU)."""
+    to ``max_batches`` batches (any pytree), moved to ``device`` (default:
+    the GPU). ``mesh`` (a ``TPMesh``) runs the weight traces
+    data-parallel: batch shards on its devices, per-block squared norms
+    summed on the lead device (``fisher.ef_trace_weights``, which also
+    says why ``microbatch`` and ``mesh_axis`` change nothing)."""
     dev = resolve_device(device)
     batches = [to_device_batch(b, dev) for b in list(batches)[:max_batches]]
     if not batches:
         raise ValueError("need at least one calibration batch")
     wtraces, used = ef_trace_weights_streaming(
-        loss_fn, params, batches, microbatch=microbatch, tolerance=tolerance)
+        loss_fn, params, batches, microbatch=microbatch, tolerance=tolerance,
+        mesh=mesh, mesh_axis=mesh_axis)
     atraces: Dict[str, float] = {}
     aranges: Dict[str, tuple] = {}
     if tap_loss_fn is not None and tap_shapes_fn is not None:

@@ -17,6 +17,21 @@ def ef_sqnorm(g: torch.Tensor) -> torch.Tensor:
     return torch.sum(g32 * g32, dim=-1)
 
 
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int8 values in [-8, 7], even last dim -> uint8 nibbles, 2 per byte:
+    an alias of ``qtensor.pack(q, 4, axis=-1)``. Packing runs along the
+    last axis (head_dim for KV pages), so one token's (KV, Dh) row owns
+    whole bytes."""
+    from repro_torch import qtensor
+    return qtensor.pack(q, 4, axis=-1)
+
+
+def unpack_int4(p: torch.Tensor) -> torch.Tensor:
+    """uint8 nibble pairs -> int8 (..., 2*D) (inverse of ``pack_int4``)."""
+    from repro_torch import qtensor
+    return qtensor.unpack(p, 4, axis=-1)
+
+
 def int8_dots(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     """Exact full-K integer dots (M, N) int32 of (M, K) int8 x (K, N)
     int8: int32 on the CPU, float64 on CUDA (exact, as in

@@ -46,8 +46,9 @@ class TPMesh:
         return torch.cat([p.to(self.lead) for p in parts], dim=dim)
 
     def psum(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
-        """Sum the shards' parts on the lead device, in shard order. Its
-        only caller sums int32 accumulators, which add exactly."""
+        """Sum the shards' parts on the lead device, in shard order: int32
+        accumulators (which add exactly) and the data-parallel EF trace's
+        per-block fp32 sums."""
         acc = parts[0].to(self.lead)
         for p in parts[1:]:
             acc = acc + p.to(self.lead)

@@ -289,7 +289,7 @@ def _fit_draft_plan(cfg, fp_params, policy: QuantPolicy, seed: int,
                                        global_batch=4, seed=seed))
     report = build_report(lambda p, b: loss_fn(p, b, cfg), None, None, None,
                           fp_params, [next(stream) for _ in range(2)],
-                          microbatch=4, tolerance=None, max_batches=2,
+                          tolerance=None, max_batches=2,
                           device=dev)
     return allocate_draft_bits(report, policy, avg_bits=avg_bits)
 

@@ -1,1 +1,7 @@
-"""Port of ``repro.models``."""
+"""Port of ``repro.models``: the dense and MoE families."""
+from repro_torch.models.transformer import (  # noqa: F401
+    init_params, forward, loss_fn, vocab_padded, QATLevels)
+from repro_torch.models.decode import (  # noqa: F401
+    DecodeState, init_decode_state, decode_step, prefill)
+from repro_torch.models.context import (  # noqa: F401
+    Context, QATContext, TapContext, CollectContext)

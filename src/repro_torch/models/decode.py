@@ -111,6 +111,19 @@ def prefill_into(params, state: DecodeState, tokens: torch.Tensor,
     return torch.stack(out, dim=1), state
 
 
+def prefill(params, inputs: Mapping[str, torch.Tensor], cfg: ModelConfig,
+            max_len: int, ctx: Optional[Context] = None
+            ) -> Tuple[torch.Tensor, DecodeState]:
+    """Run the whole prompt ``inputs["tokens"]`` (B, S) from an empty
+    dense state of ``max_len`` positions on the tokens' device: the
+    per-position logits (B, S, V) and the filled state, through
+    ``prefill_into`` (exact decode numerics)."""
+    tokens = inputs["tokens"]
+    state = init_decode_state(cfg, tokens.shape[0], max_len,
+                              device=tokens.device)
+    return prefill_into(params, state, tokens, cfg, ctx=ctx)
+
+
 def state_insert_slot(cfg: ModelConfig, state: DecodeState,
                       sub: DecodeState, slot: int) -> DecodeState:
     """Write a batch-1 dense state ``sub`` into row ``slot`` of a batched

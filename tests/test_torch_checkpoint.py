@@ -20,6 +20,7 @@ from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.launch.steps import TrainState
 from repro_torch.optim.adamw import init_adam
 from repro_torch.qtensor import QTensor, quantize
+from _torch_threads import _one_thread  # noqa: F401
 
 
 def test_checkpoint_roundtrip_and_latest(tmp_path):

@@ -22,6 +22,8 @@ from repro_torch.kernels import ops, ref
 from repro_torch.quant import (
     EmaObserver, MinMaxObserver, QuantSpec, fake_quant)
 from repro_torch.quant.calibration import init_range_state
+from _torch_threads import _one_thread  # noqa: F401
+
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16),

@@ -26,6 +26,8 @@ from repro_torch.kvcache.fit import (allocate_kv_bits as t_kv_bits,
 from repro_torch.models.transformer import loss_fn as t_loss
 from repro_torch.quant.policy import QuantPolicy as TPolicy
 from repro_torch.serve.quantized import bit_config_from_report as t_bits_from
+from _torch_threads import _one_thread  # noqa: F401
+
 
 ARCH = "internlm2_1_8b"
 

@@ -25,6 +25,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import (
     KERNEL_WIDTHS, SPLIT_WIDTHS, kernel_for, width_plan)
 from repro_torch.models.attention import chunked_attention
+from _torch_threads import _one_thread  # noqa: F401
 
 
 def _qkv(seed, b, h, s, t, d):

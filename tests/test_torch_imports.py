@@ -6,6 +6,8 @@ import subprocess
 import sys
 
 import pytest
+from _torch_threads import _one_thread  # noqa: F401
+
 
 PKG = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 
@@ -126,3 +128,59 @@ def test_train_cli_help_loads_neither_jax_nor_repro():
                  "--qat-act-bits", "--watchdog-s", "--lr"):
         assert flag in out, flag
     assert "--device" not in out
+
+
+# public names of a reference package that wait for a later queue item
+# (ROADMAP § A), by package
+WAITING = {"analysis": {"Finding", "RULES", "Report", "run_all"}}      # A8
+# the reference's architectures whose families the port does not run yet (A3)
+WAITING_ARCHS = {"mamba2_130m": "ssm", "zamba2_7b": "hybrid",
+                 "musicgen_large": "audio", "phi3_vision_4_2b": "vlm"}
+
+
+def _public(mod, root: str) -> set:
+    """The names a package defines or re-exports from its own modules:
+    public, not a submodule, not imported from elsewhere (typing, torch)."""
+    import types
+    out = set()
+    for name, value in vars(mod).items():
+        if name.startswith("_") or name == "annotations" \
+                or isinstance(value, types.ModuleType):
+            continue
+        owner = getattr(value, "__module__", None)
+        if owner is None or owner == root or owner.startswith(root + "."):
+            out.add(name)
+    return out
+
+
+@pytest.mark.parametrize("pkg", ["core", "models", "utils", "configs", "quant",
+                                 "kvcache", "serve", "qtensor", "analysis"])
+def test_package_exports_equal_reference(pkg):
+    import importlib
+    ref = _public(importlib.import_module(f"repro.{pkg}"), "repro")
+    port = _public(importlib.import_module(f"repro_torch.{pkg}"), "repro_torch")
+    waiting = WAITING.get(pkg, set())
+    assert waiting <= ref and not waiting & port
+    assert port == ref - waiting
+
+
+def test_configs_follow_reference():
+    """``ARCH_IDS`` holds the reference's ids in its order, less the
+    families that wait for A3; every ported config equals the reference's
+    field by field; the dashed aliases, ``SHAPES`` and ``cells`` agree."""
+    import dataclasses
+
+    from repro import configs as jc
+    from repro_torch import configs as tc
+    assert tc.ARCH_IDS == [a for a in jc.ARCH_IDS if a not in WAITING_ARCHS]
+    for arch, family in WAITING_ARCHS.items():
+        assert jc.get_config(arch).family == family
+    for arch in tc.ARCH_IDS:
+        for get in ("get_config", "smoke_config"):
+            t, j = getattr(tc, get)(arch), getattr(jc, get)(arch)
+            assert dataclasses.asdict(t) == dataclasses.asdict(j), (arch, get)
+        assert tc.get_config(arch.replace("_", "-")) == tc.get_config(arch)
+    assert list(tc.all_configs()) == tc.ARCH_IDS
+    assert {k: dataclasses.astuple(v) for k, v in tc.SHAPES.items()} == \
+        {k: dataclasses.astuple(v) for k, v in jc.SHAPES.items()}
+    assert tc.cells() == [c for c in jc.cells() if c[0] in tc.ARCH_IDS]

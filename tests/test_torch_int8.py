@@ -36,6 +36,8 @@ from repro_torch.serve import (
     Engine, EngineConfig, quantize_params, quantize_params_int8, trace_requests,
     weight_storage_bytes)
 from repro_torch.utils.pytree import named_leaves
+from _torch_threads import _one_thread  # noqa: F401
+
 
 TRACE = [(0, 8, 5), (0, 12, 7), (3, 6, 4)]
 ECFG = dict(max_slots=2, max_len=64, max_new_tokens=16, prefill_chunk=4,

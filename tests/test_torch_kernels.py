@@ -21,6 +21,7 @@ from repro.kernels.qmm import qmm_pallas
 from repro_torch import qtensor as tq
 from repro_torch.kernels import ef_sqnorm as kef, ops, qmm as kqmm, ref as tref
 from repro_torch.kernels import fake_quant as kfq, paged_attention as kpa
+from _torch_threads import _one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
@@ -101,7 +102,9 @@ def _chip_smoke_shapes(kernel):
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     if kernel == "qmm":
-        return [(m, k, n, 128) for _, k, n in cs.QMM_SHAPES for m in (1, 4)]
+        return [(m, k, n, 128) for name, _, kw in cs.PHASE2 if name == "qmm"
+                for _, k, n in kw.get("shapes", cs.QMM_SHAPES)
+                for m in kw.get("ms", (1, 4))]
     shapes = []
     for name, k, n, _, m, gs in cs.QMM_GROUPS_SHAPES:
         shapes.append((m, k, n, gs))
@@ -115,14 +118,15 @@ def test_qmm_launch_plan_covers_the_chip_shapes(kernel):
     """Every shape the card's checks give qmm/qmm_groups, the tp=2/4
     shards included: the grid covers N and M, the warps stay within the
     kernel's limit, the shared memory within the card's, a pass holds up
-    to 64 groups (zamba2's w_down, G=112, folds in two), the small
-    projections run 16 warps a CTA, and only the head's N gives a lane 16
+    to 64 groups (zamba2's and llama3_8b's w_down, G=112, fold in two),
+    the small projections run 16 warps a CTA, and only the heads' N
+    (internlm2, llama3, minitron; not phi3's 32,064) gives a lane 16
     columns."""
     passes = set()
     for m, k, n, gs in _chip_smoke_shapes(kernel):
         groups = k // gs
         plan = kqmm.launch_plan(m, k, n, groups)
-        assert plan.quads == (4 if n == 92544 else 1)
+        assert plan.quads == (4 if n in (92544, 128256, 256000) else 1)
         assert plan.col_tiles == -(-n // (32 * plan.quads))
         assert plan.m_tiles * kqmm.TILE_ROWS >= m
         assert 1 <= plan.warps <= kqmm.MAX_WARPS
@@ -132,7 +136,7 @@ def test_qmm_launch_plan_covers_the_chip_shapes(kernel):
         passes.add(-(-groups // plan.pass_groups))
         if plan.col_tiles <= kqmm.SMS:
             assert plan.warps == min(kqmm.MAX_WARPS, groups * 4)
-    assert passes == ({1} if kernel == "qmm" else {1, 2})
+    assert passes == {1, 2}
 
 
 def test_qmm_launch_plan_spans_every_group():
@@ -198,11 +202,16 @@ def test_paged_attention(bits):
 # (NP, page, Dh, G): phase 2's shapes on the card (internlm2's GQA and
 # olmoe's, max_len 256), its long-context row (NP = 256), the dense cache
 # read as pages at a smoke config, a 64K context, and head dims that take the kernel's
-# checked loads (12), padded lanes (96) and two chunk passes (576)
+# checked loads (12), padded lanes (96) and two chunk passes (576); the
+# rest of the dense family: llama3_8b's G = 4, minitron_4b's G = 3 (an odd
+# G: the kernel's last pass over the query rows holds one), phi3_mini's
+# Dh = 96 at G = 1, and the minitron smoke config's G = 3 at Dh = 16
 PAGED_PLAN_SHAPES = [(16, 16, 128, 2), (16, 16, 128, 1), (256, 16, 128, 2),
                      (4096, 16, 128, 1),
                      (4, 8, 12, 1), (8, 8, 16, 2), (32, 16, 96, 4),
-                     (40, 16, 576, 2)]
+                     (40, 16, 576, 2),
+                     (16, 16, 128, 4), (16, 16, 128, 3), (16, 16, 96, 1),
+                     (4, 8, 16, 3)]
 
 
 def _paged_walk(plan, np_, page, length):

@@ -5,7 +5,6 @@
 ``tp_shards`` that does not divide the kv heads."""
 import numpy as np
 import pytest
-import torch
 
 from repro.configs import smoke_config as j_smoke
 from repro.core.fit import SensitivityReport as JReport
@@ -21,22 +20,11 @@ from repro_torch.kvcache import (PagedKVConfig, allocate_kv_bits, kv_bit_config,
                                  per_shard_pool_bytes)
 from repro_torch.quant.policy import QuantPolicy
 from repro_torch.serve import kv_bit_config as serve_kv_bit_config
+from _torch_threads import _one_thread  # noqa: F401
 
 ARCHS = ["internlm2_1_8b", "olmoe_1b_7b", "deepseek_moe_16b"]
 SLOTS, MAX_LEN, PAGE = 4, 64, 16
 POLICY = dict(kv_allowed_bits=(3, 4, 8, 16))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op CPU thread for this file's tests: the suite runs files
-    in parallel worker processes, and several multi-threaded torch pools
-    on one host stall each other (a speculative engine run here took
-    ~50x its one-process time under six workers at the default)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _reports(arch):

@@ -19,6 +19,8 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.kvcache.paged import PagedKVConfig as TPagedKVConfig
 from repro_torch.models import decode as tdec
 from repro_torch.models.transformer import init_params as t_init, loss_fn as t_loss
+from _torch_threads import _one_thread  # noqa: F401
+
 
 ARCH = "internlm2_1_8b"
 MAX_LEN, PAGE, B = 32, 8, 2

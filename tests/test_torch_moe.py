@@ -35,6 +35,8 @@ from repro_torch.models.transformer import forward as t_forward, loss_fn as t_lo
 from repro_torch.quant.policy import BitConfig as TBitConfig, QuantPolicy as TPolicy
 from repro_torch.utils.pytree import named_leaves
 from repro_torch.serve.quantized import quantize_params as t_quantize
+from _torch_threads import _one_thread  # noqa: F401
+
 
 ARCHS = ["olmoe_1b_7b", "deepseek_moe_16b"]
 GS = {8: 8, 7: 8, 6: 4, 5: 8, 4: 4, 3: 8}     # pack-unit-aligned group sizes

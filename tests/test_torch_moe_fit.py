@@ -19,6 +19,7 @@ from repro_torch.models.transformer import loss_fn as t_loss
 from repro_torch.quant.policy import QuantPolicy as TPolicy
 from repro_torch.serve.quantized import bit_config_from_report as t_bits_from
 from test_torch_moe import ARCHS, make_models
+from _torch_threads import _one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module", params=ARCHS)

@@ -23,6 +23,8 @@ from repro_torch.serve.loadgen import poisson_requests
 from repro_torch.serve.quantized import quantize_params as t_quantize
 from repro_torch.utils.pytree import named_leaves
 from test_torch_moe import ARCHS, KV_BITS, RANGES, make_models, moe_bits
+from _torch_threads import _one_thread  # noqa: F401
+
 
 ECFG = dict(max_slots=3, max_len=48, max_new_tokens=12, prefill_chunk=8,
             decode_burst=2, page_size=8, int8_compute=True,

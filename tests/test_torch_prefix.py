@@ -19,6 +19,8 @@ from repro_torch.configs import smoke_config as t_smoke
 from repro_torch.convert import params_from_numpy
 from repro_torch.kvcache import paged as tpaged
 from repro_torch.serve import Engine, EngineConfig, trace_requests
+from _torch_threads import _one_thread  # noqa: F401
+
 
 ARCH = "internlm2_1_8b"
 # a 24-token shared prompt prefix ends inside a 16-token page: the

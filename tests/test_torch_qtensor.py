@@ -7,6 +7,8 @@ import torch
 
 from repro import qtensor as jq
 from repro_torch import qtensor as tq
+from _torch_threads import _one_thread  # noqa: F401
+
 
 BITS = (8, 7, 6, 5, 4, 3)
 

@@ -28,6 +28,7 @@ from repro_torch.serve.engine import Engine as TEngine, EngineConfig as TEngineC
 from repro_torch.serve.loadgen import poisson_requests
 from repro_torch.serve.quantized import quantize_params as t_quantize
 from repro_torch.utils.pytree import named_leaves
+from _torch_threads import _one_thread  # noqa: F401
 
 ARCH = "internlm2_1_8b"
 TOKEN_IDX = np.array([0, 1, 5, 100, 2**31 - 1, 77], np.int32)
@@ -37,18 +38,6 @@ ECFG = dict(max_slots=3, max_len=48, max_new_tokens=12, prefill_chunk=8,
             decode_burst=4, page_size=8, int8_compute=True,
             prefix_sharing=False)
 SAMPLING = ts.SamplingParams(temperature=0.8, top_k=50, top_p=0.95, seed=11)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op CPU thread for this file's tests: the suite runs files
-    in parallel worker processes, and several multi-threaded torch pools
-    on one host stall each other (a speculative engine run here took
-    ~50x its one-process time under six workers at the default)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _keys(seeds, tidx=TOKEN_IDX):

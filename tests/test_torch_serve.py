@@ -22,6 +22,8 @@ from repro_torch.serve.loadgen import poisson_requests
 from repro_torch.serve.quantized import quantize_params as t_quantize
 from repro_torch.serve.sampling import SamplingParams
 from repro_torch.utils.pytree import named_leaves
+from _torch_threads import _one_thread  # noqa: F401
+
 
 ARCH = "internlm2_1_8b"
 KV_BITS = {0: 8, 1: 4}

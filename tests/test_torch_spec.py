@@ -42,6 +42,7 @@ from repro_torch.serve import (Engine, EngineConfig, SamplingParams, SpecConfig,
 from repro_torch.serve.quantized import make_dequant_context
 from repro_torch.serve.spec import accept_drafts, quantize_dense_kv
 from repro_torch.utils.pytree import named_leaves
+from _torch_threads import _one_thread  # noqa: F401
 
 ARCH = "internlm2_1_8b"
 # staggered arrivals and more requests than slots: dispatches run across
@@ -50,18 +51,6 @@ TRACE = [(0, 8, 5), (0, 12, 7), (3, 6, 4), (10, 10, 6), (11, 5, 8)]
 ECFG = dict(max_slots=2, max_len=64, max_new_tokens=16, prefill_chunk=4,
             decode_burst=4)
 SAMPLED = SamplingParams(temperature=0.8, top_k=5, top_p=0.9, seed=7)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op CPU thread for this file's tests: the suite runs files
-    in parallel worker processes, and several multi-threaded torch pools
-    on one host stall each other (a speculative engine run here took
-    ~50x its one-process time under six workers at the default)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -24,6 +24,8 @@ from repro_torch.models.context import DequantContext, ShardedDequantContext
 from repro_torch.quant.policy import BitConfig as TBitConfig
 from repro_torch.serve import quantized as tquant
 from repro_torch.utils.pytree import named_leaves
+from _torch_threads import _one_thread  # noqa: F401
+
 
 ALL_BITS = (8, 6, 4, 3)
 ARCHS = ("internlm2_1_8b", "olmoe_1b_7b", "deepseek_moe_16b")

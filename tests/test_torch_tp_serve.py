@@ -28,6 +28,8 @@ from repro_torch.serve.loadgen import poisson_requests, trace_requests
 from repro_torch.serve.quantized import quantize_params, quantize_params_int8
 from repro_torch.utils.pytree import named_leaves
 from test_torch_tp import _to_jax
+from _torch_threads import _one_thread  # noqa: F401
+
 
 KV_BITS = {0: 8, 1: 4}
 RANGES = {f"layers/{i}/attn/{s}": (-4.0, 3.5) for i in range(2) for s in "kv"}

@@ -29,6 +29,8 @@ from repro_torch.launch.fault import Watchdog, supervise
 from repro_torch.models.context import QATContext, _dynamic_fake_quant_ste
 from repro_torch.optim import adamw as tadam
 from repro_torch.quant.policy import BitConfig
+from _torch_threads import _one_thread  # noqa: F401
+
 
 ARCH = "internlm2_1_8b"
 
