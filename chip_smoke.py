@@ -65,6 +65,15 @@ Phases, in order; any failure exits non-zero:
      non-binding capacity); the CLI's int8-backed path sampled and
      speculative, in process and in a subprocess; tok/s in turns, the
      accept rate beside the FIT proxies, the sampler's cost;
+  3i. (run right after 3g, on 3b's params) observability: the 4 shortest
+     of 3b's requests with tracing, counters and timed dispatches equal
+     3b's streams; drained counters equal the host bookkeeping and the
+     kernels' launches in the bursts; obs adds at most a synchronizing
+     call a drain (set_sync_debug_mode); the trace validates with its
+     device track, CUDA-event time within each dispatch's wall; the FIT
+     drift monitor at full width and 4 layers, quiet when calibrated and
+     flagging 3x stale calibration; the profiling CLI in a subprocess;
+     the decode step with and without obs, in turns;
   3h. FIT against the Hessian: internlm2_1_8b at full width and 4
      layers, one batch of 4 x 128: the EF traces and Hutchinson's
      per-block Hessian traces (8 probes, fp32, seeded), each timed, their
@@ -91,9 +100,12 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM published peaks (dense)
-FP32_FLOPS = 67e12
-INT8_OPS = 1979e12
+FP32_FLOPS = 67e12              # H100 SXM published peak, CUDA cores (dense)
+# the card's HBM bytes/s and int8 / bf16 tensor-core peaks: the cost
+# model's machine balance (repro_torch.obs.perf.cost), bound by main()
+# once the checkout's src/ is on the path, so the kernel bounds here and
+# the cost model cannot disagree
+HBM_BYTES_PER_S = INT8_OPS = BF16_FLOPS = None
 
 
 def log(*a):
@@ -734,7 +746,6 @@ def check_paged_attention(timer, gen, rows, b=4, kvh=8, g=2, dh=128, page=16,
         del kp, vp, kd, vd
 
 
-BF16_FLOPS = 989e12            # tensor cores, dense; fp16 the same
 
 # (name, shape); ragged sizes, a 3-D shape whose middle axis has a short
 # inner stride (the per-channel element walk), internlm2_1_8b's square
@@ -1066,6 +1077,11 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
     from repro_torch.kernels import _build
+    from repro_torch.obs.perf import cost
+
+    global HBM_BYTES_PER_S, INT8_OPS, BF16_FLOPS
+    HBM_BYTES_PER_S, INT8_OPS, BF16_FLOPS = (cost.HBM_BW, cost.INT8_OPS,
+                                             cost.PEAK_FLOPS)  # fp16 the same
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1133,10 +1149,16 @@ def main() -> int:
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         result["spec_path"] = spp = spec_path(kept)
-        del kept
         log(f"phase 3g: sampled and speculative serving in "
             f"{time.perf_counter() - t0:.1f} s")
         log(json.dumps({"spec_path": spp}))
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        result["obs_path"] = op = obs_path(kept)
+        del kept
+        log(f"phase 3i: observability in {time.perf_counter() - t0:.1f} s")
+        log(json.dumps({"obs_path": op}))
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -1173,8 +1195,8 @@ def main() -> int:
         return 0
     mps = result["main_paths"]
     paths = ([mp["launches"] for mp in mps.values()]
-             + [tpp["launches"], spp["launches"], cp["launches"], lp["launches"],
-                tp["launches"], hp["launches"]])
+             + [tpp["launches"], spp["launches"], op["launches"],
+                cp["launches"], lp["launches"], tp["launches"], hp["launches"]])
     log(json.dumps({"kernels": kernels_line(rows, paths)}))
     for arch, mp in mps.items():
         log(f"[{card}] {arch} ({mp['layers']} layers): report "
@@ -1238,6 +1260,30 @@ def main() -> int:
         f"{sab['sampler_ms']['full']:.4f} ms")
     log(f"[{card}] phase 3g seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in spp["seconds"].items()))
+    sc, ov = op["sync_calls"], op["overhead"]
+    log(f"[{card}] 3i obs serve (internlm2_1_8b, {OBS_REQUESTS} of 3b's requests): "
+        f"streams == 3b's; counters == bookkeeping ({op['parity']}); "
+        f"{sc['drains']} drains, {1e3 * op['drain_s'] / sc['drains']:.3f} ms "
+        f"each; synchronizing calls obs {sc['obs']} vs off {sc['off']}; "
+        f"{op['trace_events']} trace events")
+    log(f"[{card}] 3i counters on the other routes == bookkeeping and "
+        f"launches: olmoe_1b_7b (grouped_qmm; {op['routes']['olmoe_dropped_tokens']:.0f}"
+        f" MoE drops) and int8-backed W8 (int8_matmul)")
+    log(f"[{card}] 3i decode step at batch 4 in turns, ms: " + ", ".join(
+        f"{n} {v:.1f}" for n, v in ov["median_step_ms"].items())
+        + "; served, ms a step: " + ", ".join(
+            f"{n} {v:.1f}" for n, v in ov["median_serve_ms"].items())
+        + f"; full-profiling drain {ov['drain_ms']:.3f} ms; syncs added by "
+        f"line {sc['added_by_line']}")
+    dr = op["drift"]
+    log(f"[{card}] 3i drift ({OBS_DRIFT_LAYERS} layers): calibrated "
+        f"max ratio {dr['calibrated']['max_ratio']:.2f}, kl mean "
+        f"{dr['calibrated']['kl_mean']:.3g}; 3x stale: "
+        f"{dr['stale_3x']['n_flagged']} sites flagged in "
+        f"{dr['stale_3x']['flagged_layers']}")
+    log(f"[{card}] 3i profile CLI: {op['profile_cli']['sites']} sites, "
+        f"{op['profile_cli']['wall_s']:.1f} s; phase 3i seconds: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in op["seconds"].items()))
     log(f"[{card}] launch.serve internlm2_1_8b --int8 --int8-compute --paged: "
         f"int8-backed weights {cp['weight_bytes'] / 1e9:.3f} GB; decode "
         f"{cp['decode_tokens_per_s']:.1f} tok/s; TTFT p50 {cp['ttft_p50']:.3f} s "
@@ -1318,7 +1364,11 @@ PATH_KERNELS = {"dense": ("ef_sqnorm", "qmm", "paged_attention"),
                 "spec_moe": ("qmm", "paged_attention", "grouped_qmm"),
                 "spec_int8": ("int8_matmul", "paged_attention"),
                 # phase 3h: the FIT report's EF traces beside Hutchinson
-                "hessian": ("ef_sqnorm",)}
+                "hessian": ("ef_sqnorm",),
+                # phase 3i: obs-enabled serving, by route
+                "obs": ("qmm", "paged_attention"),
+                "obs_moe": ("qmm", "grouped_qmm", "paged_attention"),
+                "obs_int8": ("int8_matmul", "paged_attention")}
 CLI_IDLE_KERNELS = ("qmm", "qmm_groups", "grouped_qmm", "ef_sqnorm")
 # each kernel's launch counter: (module under repro_torch.kernels, attribute)
 COUNTERS = {"ef_sqnorm": ("ef_sqnorm", "launches"), "qmm": ("qmm", "launches"),
@@ -2506,6 +2556,415 @@ def run_train_cli_smoke() -> dict:
         raise AssertionError(f"launch.train CLI: LATEST is {latest!r}")
     return {"wall_s": time.perf_counter() - t0, "latest": latest,
             "final_log": proc.stderr.strip().splitlines()[-1][-160:]}
+
+
+OBS_REQUESTS = 4        # phase 3i: the 4 shortest of 3b's internlm2 requests
+OBS_DRIFT_LAYERS = 4    # depth of phase 3i's drift model (full width)
+
+
+def _sync_calls(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: the
+    number of synchronizing CUDA calls it made (one warning each), and
+    the count by the source line that made each."""
+    import collections
+    import linecache
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    hits = [w for w in caught if "synchroniz" in str(w.message)]
+    where = collections.Counter(
+        f"{Path(w.filename).parent.name}/{Path(w.filename).name}:{w.lineno} "
+        + linecache.getline(w.filename, w.lineno).strip() for w in hits)
+    return len(hits), dict(where)
+
+
+def obs_path(kept: dict) -> dict:
+    """Phase 3i: observability on phase 3b's internlm2_1_8b params (run
+    right after 3g), the engine on the step clock so two runs schedule
+    alike. Counters set to 0 just before the observed run, read after.
+
+      * obs changes no token: the 4 shortest of 3b's requests served with
+        ``ObsConfig(trace, device_metrics, perf, drain_every=2)``
+        ``torch.equal`` 3b's streams;
+      * counter parity: the drained totals equal the host bookkeeping
+        (tokens, steps, the histogram summed to the bursts), ``qmm_calls``
+        and ``paged_calls`` the kernels' launches inside the bursts (the
+        window the counter sinks cover), and there were >= 2 drains; the
+        same on olmoe_1b_7b (``grouped_qmm``) and the int8-backed route
+        (``int8_matmul``);
+      * zero sync: that run and an obs-off run of the same requests under
+        ``set_sync_debug_mode("warn")``: obs adds at most one
+        synchronizing call a drain, plus one;
+      * the Chrome trace validates with its device track; every dispatch's
+        CUDA-event time is at most its host wall;
+      * drift at full width and 4 layers: calibrated, quiet; calibration
+        3x stale, sites flagged by layer;
+      * ``python -m repro_torch.launch.profile --smoke`` in a subprocess:
+        its JSON and trace, every site's predicted bytes those of the
+        same packed tree's cost model, whose weight bytes equal
+        ``storage_summary``'s packed bytes;
+      * the decode step with obs off, counters, counters with clip
+        statistics every burst and full profiling, in turns (printed, no
+        gate: the host's spread exceeds them)."""
+    from repro_torch.obs import (
+        GAUGE_HELP, ObsConfig, parse, render, snapshot, validate_chrome_trace)
+    from repro_torch.serve.engine import Engine
+
+    res = {"seconds": {}, "launches": {}}
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        res["seconds"][name] = now - clock[0]
+        clock[0] = now
+
+    k = kept["internlm2_1_8b"]
+    cfg = k["cfg"]
+    ecfg = dataclasses.replace(k["ecfg"], clock="steps")
+    qp = tree_to(k["qparams"], "cuda")          # shared by every engine below
+    kw = dict(kv_bits=k["kv_bits"], kv_ranges=k["ranges"])
+    ids = sorted(r.id for r in sorted(
+        k["requests"](), key=lambda r: r.prompt_len + r.max_new_tokens
+    )[:OBS_REQUESTS])
+
+    def requests():
+        return [r for r in k["requests"]() if r.id in ids]
+
+    full = ObsConfig(trace=True, device_metrics=True, perf=True, drain_every=2)
+    eng = Engine(qp, cfg, dataclasses.replace(ecfg, obs=full), **kw)
+    out = {}
+    syncs_on, where_on = _sync_calls(
+        lambda: out.update(observed_run(res, "obs", eng, requests())))
+    want = {i: k["streams"][i] for i in ids}
+    if out["streams"] != want:
+        raise AssertionError(f"3i: obs changed the streams: {out['streams']} "
+                             f"vs {want}")
+    res.update(counters=eng.counters.totals(), rates=eng.counters.rates(),
+               parity=out["parity"], n_drains=eng.counters.n_drains,
+               drain_s=eng.counters.drain_s, timing=eng.perf.summary())
+    m = eng.metrics
+    lap("observed serve")
+
+    off = Engine(qp, cfg, ecfg, **kw)
+    # the observed run's synchronize() calls, around the same work
+    syncs_off, where_off = _sync_calls(lambda: (torch.cuda.synchronize(),
+                                                off.run(requests()),
+                                                torch.cuda.synchronize()))
+    res["sync_calls"] = {"obs": syncs_on, "off": syncs_off,
+                         "drains": eng.counters.n_drains,
+                         "added_by_line": {k: v - where_off.get(k, 0)
+                                           for k, v in where_on.items()
+                                           if v != where_off.get(k, 0)}}
+    if syncs_on - syncs_off > eng.counters.n_drains + 1:
+        raise AssertionError(f"3i: obs added synchronizing calls: {res['sync_calls']}")
+    lap("obs-off serve")
+
+    trace = eng.tracer.chrome_trace()
+    problems = validate_chrome_trace(trace)
+    dev = [e for e in trace["traceEvents"]
+           if e.get("cat") == "device" and e.get("ph") == "X"]
+    if problems or not dev:
+        raise AssertionError(f"3i trace: {problems[:3]}, {len(dev)} device spans")
+    res["trace_events"] = eng.tracer.n_events
+    text = render(snapshot(eng), GAUGE_HELP)
+    if parse(text)[("repro_ctr_decode_tokens", "")] != m.decode_tokens:
+        raise AssertionError("3i: the Prometheus snapshot's decode tokens")
+    res["snapshot_lines"] = len(text.splitlines())
+    for kind in ("prefill_chunk", "decode_burst"):
+        st = res["timing"][kind]
+        if st["device_timed"] != st["count"] or st["device_over_wall_max"] > 1.0:
+            raise AssertionError(f"3i {kind} timing: {st}")
+    del eng, off
+    lap("trace checks")
+
+    res["routes"] = obs_routes(res, kept)
+    lap("MoE and int8 routes")
+    res["drift"] = drift_check()
+    lap("drift")
+    res["profile_cli"] = run_profile_cli_smoke()
+    lap("profile CLI")
+    res["overhead"] = obs_overhead(qp, cfg, ecfg, kw)
+    lap("overhead in turns")
+    return res
+
+
+def observed_run(res: dict, path: str, engine, reqs) -> dict:
+    """Serve ``reqs`` on an obs engine with every kernel counter set to 0
+    just before and read just after (added to ``res["launches"]``); the
+    drained totals must equal the host bookkeeping, and each call count
+    the launches of its kernels inside ``engine._burst`` (the window the
+    counter sinks cover). Returns the parity pairs and the streams by
+    request id."""
+    from repro_torch.kernels import grouped_qmm as kg
+    from repro_torch.kernels import int8_matmul as ki
+    from repro_torch.kernels import paged_attention as kpa
+    from repro_torch.kernels import qmm as kqmm
+
+    window = {"qmm": 0, "int8mm": 0, "paged": 0}
+    burst = engine._burst
+
+    def counted(steps):
+        q0, i0, p0 = kqmm.launches + kg.launches, ki.launches, kpa.launches
+        burst(steps)
+        window["qmm"] += kqmm.launches + kg.launches - q0
+        window["int8mm"] += ki.launches - i0
+        window["paged"] += kpa.launches - p0
+
+    engine._burst = counted
+    torch.cuda.synchronize()
+    reset_counts()
+    fin, m = engine.run(reqs)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    for name, v in launches.items():
+        res["launches"][name] = res["launches"].get(name, 0) + v
+    for name in PATH_KERNELS[path]:
+        if launches[name] <= 0:
+            raise AssertionError(f"3i {path}: kernel {name} was not launched")
+    t = engine.counters.totals()
+    parity = {"decode_tokens": (t["decode_tokens"], m.decode_tokens),
+              "decode_steps": (t["decode_steps"], m.decode_steps),
+              "hist_sum": (sum(t["burst_size_hist"]), t["decode_bursts"]),
+              "qmm_calls": (t["qmm_calls"], window["qmm"]),
+              "int8mm_calls": (t["int8mm_calls"], window["int8mm"]),
+              "paged_calls": (t["paged_calls"], window["paged"])}
+    if (any(a != b for a, b in parity.values()) or engine.counters.n_drains < 2
+            or not 0.0 <= t["act_sat"] <= t["act_elems"]):
+        raise AssertionError(f"3i {path} counter parity: {parity}, "
+                             f"{engine.counters.n_drains} drains, {t}")
+    return {"parity": parity,
+            "streams": {r.id: r.output_tokens.tolist() for r in fin}}
+
+
+def obs_routes(res: dict, kept: dict) -> dict:
+    """The counters on the other serving routes: olmoe_1b_7b at full width
+    on 3b's params (``grouped_qmm``; its MoE drops) and the int8-backed
+    W8 route at smoke size (``int8_matmul``), clip statistics every
+    burst."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.obs import ObsConfig
+    from repro_torch.serve.engine import Engine, EngineConfig
+    from repro_torch.serve.loadgen import poisson_requests
+    from repro_torch.serve.quantized import quantize_params_int8
+
+    obs = ObsConfig(device_metrics=True, stats_every=1, drain_every=1)
+    out = {}
+    km = kept["olmoe_1b_7b"]
+    mcfg = km["cfg"]
+    eng = Engine(km["qparams"], mcfg, dataclasses.replace(
+        km["ecfg"], clock="steps", obs=obs), kv_bits=km["kv_bits"],
+        kv_ranges=km["ranges"])
+    reqs = poisson_requests(mcfg, 3, rate=1.0, prompt_len=(8, 12), gen_len=8,
+                            seed=7)
+    out["olmoe"] = observed_run(res, "obs_moe", eng, reqs)["parity"]
+    out["olmoe_dropped_tokens"] = eng.counters.totals()["moe_dropped_tokens"]
+    del eng
+    cfg = dataclasses.replace(smoke_config("internlm2_1_8b"), scan_layers=False)
+    qp, scales = quantize_params_int8(init_params(cfg, seed=0), 8)
+    eng = Engine(qp, cfg, EngineConfig(
+        max_slots=2, max_len=32, max_new_tokens=8, prefill_chunk=8,
+        decode_burst=4, int8_compute=True, kv_cache="paged", page_size=8,
+        obs=obs), scales=scales, kv_bits=8)
+    reqs = poisson_requests(cfg, 3, rate=1.0, prompt_len=(6, 12), gen_len=8,
+                            seed=7)
+    out["int8"] = observed_run(res, "obs_int8", eng, reqs)["parity"]
+    return out
+
+
+def drift_check() -> dict:
+    """The FIT drift monitor on internlm2_1_8b at full width and
+    OBS_DRIFT_LAYERS layers (W4, group 128, int8 KV): ranges calibrated on
+    an fp forward over 2 batches of 4 x 128 tokens keep it quiet; the
+    same run self-calibrated at 1/3 scale flags sites, grouped by layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.report import to_device_batch
+    from repro_torch.data.synthetic import LMStreamConfig, lm_batches
+    from repro_torch.models.context import CollectContext
+    from repro_torch.models.transformer import forward, init_params
+    from repro_torch.obs.drift import DriftMonitor
+    from repro_torch.serve.engine import Engine, EngineConfig
+    from repro_torch.serve.loadgen import poisson_requests
+    from repro_torch.serve.quantized import quantize_params
+
+    cfg = dataclasses.replace(get_config("internlm2_1_8b"),
+                              num_layers=OBS_DRIFT_LAYERS)
+    params = init_params(cfg, seed=0)
+    stream = lm_batches(LMStreamConfig(vocab_size=cfg.vocab_size, seq_len=128,
+                                       global_batch=4, seed=0))
+    ranges = {}
+    with torch.no_grad():
+        for _ in range(2):
+            ctx = CollectContext()
+            forward(params, to_device_batch(next(stream), "cuda"), cfg, ctx=ctx)
+            for s, a in ctx.acts.items():
+                lo, hi = ranges.get(s, (0.0, 0.0))
+                ranges[s] = (min(lo, float(a.min())), max(hi, float(a.max())))
+    qp, _ = quantize_params(params, 4, group_size=128)
+    ecfg = EngineConfig(max_slots=4, max_len=64, max_new_tokens=16,
+                        prefill_chunk=16, page_size=16, kv_cache="paged",
+                        int8_compute=True)
+    out = {}
+    for tag, rng, scale in (("calibrated", ranges, 1.0),
+                            ("stale_3x", {}, 1.0 / 3.0)):
+        eng = Engine(qp, cfg, ecfg, kv_bits=8, kv_ranges=ranges)
+        mon = DriftMonitor(params, rng, every=4, calibration_scale=scale)
+        mon.attach(eng)
+        reqs = poisson_requests(cfg, 4, rate=1.0, prompt_len=(8, 16),
+                                gen_len=16, seed=4)
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        rep = mon.drift_report()
+        out[tag] = {"n_samples": rep["n_samples"], "kl_mean": rep["kl_mean"],
+                    "kl_max": rep["kl_max"],
+                    "max_ratio": max(d["max_ratio"] for d in rep["sites"].values()),
+                    "flagged_layers": rep["flagged_layers"],
+                    "n_flagged": len(rep["flagged_sites"]),
+                    "wall_s": time.perf_counter() - t0}
+        if rep["n_samples"] < 2:
+            raise AssertionError(f"3i drift {tag}: {rep['n_samples']} samples")
+    if not (out["calibrated"]["n_flagged"] == 0
+            and out["stale_3x"]["n_flagged"] > 0
+            and all(lay.startswith("layers/")
+                    for lay in out["stale_3x"]["flagged_layers"])):
+        raise AssertionError(f"3i drift: {out}")
+    return out
+
+
+def run_profile_cli_smoke() -> dict:
+    """``python -m repro_torch.launch.profile --smoke`` in a subprocess on
+    this card, its outputs checked by ``check_profile``."""
+    import os
+
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    js, tr = out_dir / "profile.json", out_dir / "profile_trace.json"
+    cmd = [sys.executable, "-m", "repro_torch.launch.profile", "--arch",
+           "internlm2_1_8b", "--smoke", "--weight-bits", "4", "--group-size",
+           "8", "--kv-bits", "8", "--requests", "6", "--json", str(js),
+           "--trace", str(tr)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          cwd=str(ROOT), timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"launch.profile CLI exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    return dict(check_profile(js, tr), wall_s=time.perf_counter() - t0)
+
+
+def check_profile(js: Path, tr: Path) -> dict:
+    """The profile CLI's outputs: its JSON parses, its trace validates with
+    a device track, and every site's predicted bytes are the cost model's
+    for the same packed tree (built here from the same seed), whose
+    weight bytes equal ``storage_summary``'s packed bytes, site by site."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.obs import validate_chrome_trace
+    from repro_torch.obs.perf import site_costs_from_tree
+    from repro_torch.qtensor import storage_summary
+    from repro_torch.serve.quantized import quantize_params
+    from repro_torch.utils.pytree import named_leaves
+
+    payload = json.loads(js.read_text())
+    trace = json.loads(tr.read_text())
+    problems = validate_chrome_trace(trace)
+    if problems or not any(e.get("cat") == "device" for e in trace["traceEvents"]):
+        raise AssertionError(f"launch.profile trace: {problems[:3]}")
+    cfg = dataclasses.replace(smoke_config("internlm2_1_8b"), scan_layers=False)
+    qp, _ = quantize_params(init_params(cfg, seed=0), 4, group_size=8)
+    costs = site_costs_from_tree(qp, 2, context=24 + 12 // 2, kv_bits=8,
+                                 page_size=8, cfg=cfg)
+    leaves = dict(named_leaves(qp))
+    for row in payload["sites"]:
+        c = costs[row["site"]]
+        if row["predicted_bytes"] != c.bytes:
+            raise AssertionError(f"launch.profile site {row}: cost {c}")
+        if c.kind == "qmm" and c.bytes_weight != \
+                storage_summary([leaves[row["site"]]])["packed_bytes"]:
+            raise AssertionError(f"launch.profile site {row['site']}: weight "
+                                 "bytes != packed storage")
+    if {r["site"] for r in payload["sites"]} != set(costs):
+        raise AssertionError("launch.profile: sites differ from the cost model")
+    return {"sites": len(payload["sites"]), "timing": payload["timing"],
+            "roofline_step_ms": 1e3 * payload["roofline_totals"]["step_time_s"]}
+
+
+def obs_overhead(qp, cfg, ecfg, kw, turns: int = 2, steps: int = 8) -> dict:
+    """What observability costs, in turns, on engines sharing ``qp``:
+
+      * the decode step at batch ``max_slots`` (host clock, ``steps``
+        steps a leg ending in a synchronize, on a fresh paged state that
+        maps every page) with no counter sink, a counters sink, and a
+        sink that also computes the clip statistics, each sink folded
+        once a leg as a burst of ``steps`` folds it;
+      * ms per decode step (burst walls over steps) of 4 short requests
+        (prompt 4, 17 new tokens) served with obs off and fully profiled
+        (trace, counters, timed dispatches, statistics every 4th burst),
+        and the full engine's ms a drain."""
+    from repro_torch.models.decode import decode_step
+    from repro_torch.obs import (
+        CounterSink, ObsConfig, collecting, fold, init_counters)
+    from repro_torch.obs.runtime import init_host_counters
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.loadgen import poisson_requests
+
+    engines = {"off": Engine(qp, cfg, ecfg, **kw),
+               "full": Engine(qp, cfg, dataclasses.replace(ecfg, obs=ObsConfig(
+                   trace=True, device_metrics=True, perf=True, drain_every=4)),
+                   **kw)}
+    eng = engines["off"]
+    s, npp = ecfg.max_slots, ecfg.max_len // ecfg.page_size
+    st = eng._fresh_state()
+    st.paged.table.copy_(torch.arange(s * npp, dtype=torch.int32).reshape(s, npp))
+    st.paged.write_limit.fill_(ecfg.max_len)
+    tok = torch.zeros((s, 1), dtype=torch.int32, device=eng.device)
+    ctr, host = init_counters(eng.device), init_host_counters()
+    sinks = {"off": None, "counters": CounterSink(stats=False),
+             "counters+stats": CounterSink(stats=True)}
+
+    def step_leg(name):
+        nonlocal st
+        sink = sinks[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for _ in range(steps):
+                if sink is None:
+                    _, st = decode_step(eng.params, st, tok, cfg, ctx=eng._ctx)
+                else:
+                    with collecting(sink):
+                        _, st = decode_step(eng.params, st, tok, cfg,
+                                            ctx=eng._ctx)
+            if sink is not None:
+                fold(ctr, sink, host)         # as a burst of ``steps`` does
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / steps
+
+    step_ms = {n: [] for n in sinks}
+    step_leg("off")                                   # warm
+    for name in (list(sinks) + list(sinks)[::-1]) * turns:
+        step_ms[name].append(step_leg(name))
+    serve_ms = {n: [] for n in engines}
+    for name in ["off", "full", "full", "off"] * (turns // 2 or 1):
+        reqs = poisson_requests(cfg, 4, rate=1.0, prompt_len=4, gen_len=17,
+                                seed=5)
+        for r in reqs:
+            r.arrival_time = 0.0
+        _, m = engines[name].run(reqs)
+        serve_ms[name].append(1e3 * m.decode_s / max(m.decode_steps, 1))
+    full = engines["full"].counters
+    return {"step_ms": step_ms, "serve_ms_per_step": serve_ms,
+            "median_step_ms": {n: statistics.median(v) for n, v in step_ms.items()},
+            "median_serve_ms": {n: statistics.median(v)
+                                for n, v in serve_ms.items()},
+            "drain_ms": 1e3 * full.drain_s / max(full.n_drains, 1)}
 
 
 HESSIAN_LAYERS = 4      # depth of phase 3h's model (full width)

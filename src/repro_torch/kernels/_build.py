@@ -24,6 +24,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _lib: Optional[ctypes.CDLL] = None
+# libraries built or loaded by this process (``lib``): a dispatch during
+# which it steps paid that cost (the obs timer's compile split)
+loads = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -113,8 +116,9 @@ def build() -> Path:
 
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
-    global _lib
+    global _lib, loads
     if _lib is None:
+        loads += 1
         so = ctypes.CDLL(str(build()))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(so, name)

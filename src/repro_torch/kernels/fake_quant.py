@@ -174,3 +174,16 @@ def _launch_channel(x, out, c: int, inner: int, s, zp, lv: float,
         plan.ty, plan.blocks_x, plan.blocks_y, _build.stream_ptr(x.device))
     _build.check(err, "fake_quant_per_channel")
     launches_per_channel += 1
+
+
+def clip_stats(x: torch.Tensor, scale, zero_point, bits: int, levels=None):
+    """(clipped, total) counts of one fake-quant call: how many grid
+    indices ``round(x / scale + zp)`` fell outside [0, levels] and were
+    clamped (the reference's formula, a division). The first is a 0-d
+    fp32 tensor on x's device, the second a Python float; scale and
+    zero point may be numbers or tensors on x's device (no host copy).
+    Feeds the ``fq_clip`` / ``fq_elems`` counters."""
+    lv = (2.0 ** bits - 1.0) if levels is None else float(levels)
+    q = torch.round(x.to(torch.float32) / scale + zero_point)
+    clipped = torch.sum((q < 0.0) | (q > lv), dtype=torch.float32)
+    return clipped, float(x.numel())

@@ -134,3 +134,11 @@ def _launch(x_q, xs, w_q, ws, out, plan: Int8Plan) -> None:
         _build.stream_ptr(x_q.device))
     _build.check(err, "int8_matmul")
     launches += 1
+
+
+def activation_saturation(x_q: torch.Tensor):
+    """(saturated, total) counts of the int8 activation operand — the
+    W8A8 route's clip-rate sample (``qmm.saturation_stats``' twin): a 0-d
+    fp32 tensor and a Python float."""
+    from repro_torch.kernels.qmm import saturation_stats
+    return saturation_stats(x_q)

@@ -210,3 +210,10 @@ def _launch(q, kp, vp, kvmode, table, lengths, offset, ks, vs, out, part,
         1 if vec else 0, _build.stream_ptr(q.device))
     _build.check(err, "paged_attention")
     launches += 1
+
+
+def read_token_stats(pos: torch.Tensor) -> torch.Tensor:
+    """KV tokens attended by one call (the sum over the batch of pos + 1)
+    — the ``paged_tokens_read`` counter's per-call increment, a 0-d fp32
+    tensor on pos's device (positions are data; nothing is read back)."""
+    return torch.sum(pos, dtype=torch.float32) + float(pos.numel())

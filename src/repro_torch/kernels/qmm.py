@@ -227,3 +227,17 @@ def _launch_fold(terms, xs, out, m, n, groups) -> None:
         _build.stream_ptr(terms.device))
     _build.check(err, "qmm_groups_fold")
     launches_fold += 1
+
+
+def saturation_stats(x_q: torch.Tensor):
+    """(saturated, total) element counts of an int8 activation block —
+    |x| >= 127 means the row-wise quantizer clipped (the activation
+    outgrew its per-row scale). Sampled into the ``act_sat`` /
+    ``act_elems`` counters by the obs-enabled engine: the first a 0-d
+    fp32 tensor on x_q's device, the second a Python float (the host
+    knows it). Plain torch, as the reference's jnp reduction (no Pallas
+    kernel): |q| >= 127 for int8 q is q in {127, -128, -127}, its byte
+    in {127, 128, 129}, so one wrapping uint8 subtract and one compare
+    find them."""
+    sat = torch.sum((x_q.view(torch.uint8) - 127) <= 2, dtype=torch.float32)
+    return sat, float(x_q.numel())

@@ -47,9 +47,17 @@ sensitivity report of the fp weights; ``--spec-kv-bits`` is the draft
 lane's KV width (8 or 16 dense, any page width paged). The JSON dump
 gains a ``"spec"`` entry (accept rate, dispatches, the FIT proxies).
 
-Not ported yet, and refused with ``NotImplementedError`` when given a
-value other than the default: ``--trace``, ``--events``,
-``--metrics-*``, ``--drain-every``, ``--drift-*`` (ROADMAP A6).
+Observability (``repro_torch.obs``): ``--trace PATH`` writes a Chrome
+trace (open in https://ui.perfetto.dev) and ``--events PATH`` a jsonl
+event log; either, or ``--metrics-file PATH`` (a Prometheus text
+snapshot and a sibling ``.json``) or ``--metrics-port N`` (a live
+``/metrics`` endpoint on 127.0.0.1; 0 picks a port), turns on the device
+counters, drained every ``--drain-every`` bursts; the JSON dump gains an
+``"observability"`` entry (drains, counter totals, rates).
+``--drift-every N`` attaches the FIT drift monitor (one fp-reference
+probe every N decode steps, self-calibrated on its first sample, scaled
+by ``1 / --drift-stale`` to simulate stale calibration; sites past
+``--drift-threshold`` are flagged by layer): the dump gains ``"drift"``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2_1_8b \\
       --smoke --int8 --int8-compute --paged --kv-bits 8 --requests 4 \\
@@ -71,6 +79,9 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.launch.mesh import make_tp_mesh
 from repro_torch.models.transformer import init_params
+from repro_torch.obs import (
+    GAUGE_HELP, MetricsServer, ObsConfig, write_snapshot)
+from repro_torch.obs import snapshot as obs_snapshot
 from repro_torch.quant.policy import QuantPolicy
 from repro_torch.quant.quantizer import QuantSpec, fake_quant_ref
 from repro_torch.serve import (
@@ -101,26 +112,6 @@ def quantize_weights(params, weight_bits: Optional[int],
     return map_with_names(one, params)
 
 
-def _refuse_unported(**flags) -> None:
-    """Raise on a flag of a feature the port does not have yet (its
-    ROADMAP item in the message) when it is away from its default."""
-    unported = {
-        "trace_path": (None, "observability (ROADMAP A6)"),
-        "events_path": (None, "observability (ROADMAP A6)"),
-        "metrics_file": (None, "observability (ROADMAP A6)"),
-        "metrics_port": (None, "observability (ROADMAP A6)"),
-        "drain_every": (8, "observability (ROADMAP A6)"),
-        "drift_every": (0, "the FIT drift monitor (ROADMAP A6)"),
-        "drift_stale": (1.0, "the FIT drift monitor (ROADMAP A6)"),
-        "drift_threshold": (1.5, "the FIT drift monitor (ROADMAP A6)"),
-    }
-    for name, value in flags.items():
-        default, what = unported[name]
-        if value != default:
-            raise NotImplementedError(
-                f"{name}={value!r}: {what} is not ported to repro_torch yet")
-
-
 def serve(arch: str, smoke: bool, batch: int, prompt_len: int, gen_len: int,
           weight_bits: Optional[int], seed: int = 0, int8: bool = False,
           packed: bool = False,
@@ -148,13 +139,10 @@ def serve(arch: str, smoke: bool, batch: int, prompt_len: int, gen_len: int,
     ``generated`` (B, G) matrix; ``tp`` and ``shard_weight_bytes``, the
     weight bytes one shard holds; with ``spec_k`` > 1, ``spec`` (the
     reference's dict: accept rate, dispatches and, for ``fit:AVG``, the
-    plan's FIT proxies)."""
+    plan's FIT proxies); with an observability flag ``observability``
+    (trace events, counter drains, totals, rates); with ``drift_every``,
+    ``drift`` (the monitor's report)."""
     sampling = sampling or SamplingParams()
-    _refuse_unported(
-        trace_path=trace_path, events_path=events_path,
-        metrics_file=metrics_file, metrics_port=metrics_port,
-        drain_every=drain_every, drift_every=drift_every,
-        drift_stale=drift_stale, drift_threshold=drift_threshold)
     spec_fit = spec_bits is not None and str(spec_bits).startswith("fit:")
     dev = resolve_device(device)
     mesh = None
@@ -167,12 +155,14 @@ def serve(arch: str, smoke: bool, batch: int, prompt_len: int, gen_len: int,
                      "--int8-compute (required for sharded execution)", tp)
             int8_compute = True
     cfg = smoke_config(arch) if smoke else get_config(arch)
-    if int8 or packed or paged:
+    if int8 or packed or paged or drift_every:
         # per-layer scales / page pools / payload shapes are path-keyed
+        # (and so are the drift probes' sites)
         cfg = dataclasses.replace(cfg, scan_layers=False)
     params = init_params(cfg, seed=seed, device=dev)
-    # the fp weights before PTQ: what the FIT draft report measures
-    fp_params = params if spec_fit else None
+    # the fp weights before PTQ: the drift probes' reference and what the
+    # FIT draft report measures
+    fp_params = params if (spec_fit or drift_every) else None
 
     scales = None
     policy = QuantPolicy()
@@ -211,7 +201,6 @@ def serve(arch: str, smoke: bool, batch: int, prompt_len: int, gen_len: int,
         spec = SpecConfig(k=spec_k, draft_bits=draft_bits,
                           draft_kv_bits=spec_kv_bits if spec_kv_bits
                           is not None else 8)
-    del fp_params
 
     if n_requests is None:
         reqs = trace_requests(cfg, [(0.0, prompt_len, gen_len)] * batch,
@@ -227,16 +216,45 @@ def serve(arch: str, smoke: bool, batch: int, prompt_len: int, gen_len: int,
     max_len = prompt_len + gen_len
     if paged:
         max_len = -(-max_len // page_size) * page_size    # page multiple
+    obs = None
+    if trace_path or events_path or metrics_file or metrics_port is not None:
+        obs = ObsConfig(trace=bool(trace_path or events_path),
+                        device_metrics=True, drain_every=drain_every,
+                        trace_path=trace_path, events_path=events_path,
+                        metrics_file=metrics_file, metrics_port=metrics_port)
     ecfg = EngineConfig(
         max_slots=batch, max_len=max_len, max_new_tokens=gen_len,
         prefill_chunk=min(prefill_chunk, max(prompt_len, 1)),
         decode_burst=decode_burst, clock=clock, int8_compute=int8_compute,
         kv_cache="paged" if paged else "dense", page_size=page_size,
         kv_pages=kv_pages, prefix_sharing=prefix_sharing,
-        moe_dispatch=moe_dispatch, mesh=mesh, spec=spec)
+        moe_dispatch=moe_dispatch, mesh=mesh, spec=spec, obs=obs)
     engine = Engine(params, cfg, ecfg, scales=scales, kv_bits=kv_bits,
                     device=None if mesh else dev)
-    finished, metrics = engine.run(reqs)
+
+    monitor = None
+    if drift_every:
+        # FIT drift demo: fp reference + self-calibrating ranges;
+        # drift_stale S shrinks the calibration S x to simulate serving
+        # past a stale SensitivityReport (flags every affected layer)
+        from repro_torch.obs.drift import DriftMonitor
+        monitor = DriftMonitor(fp_params, {}, every=drift_every,
+                               ratio_threshold=drift_threshold,
+                               calibration_scale=1.0 / drift_stale)
+        monitor.attach(engine)
+    del fp_params
+
+    server = None
+    if obs is not None and obs.metrics_port is not None:
+        server = MetricsServer(obs.metrics_port,
+                               lambda: obs_snapshot(engine))
+        log.info("live /metrics endpoint on http://127.0.0.1:%d/metrics",
+                 server.port)
+    try:
+        finished, metrics = engine.run(reqs)
+    finally:
+        if server is not None:
+            server.close()
     summ = metrics.summary()
 
     out = {
@@ -254,6 +272,24 @@ def serve(arch: str, smoke: bool, batch: int, prompt_len: int, gen_len: int,
     if n_requests is None:
         # closed-loop: uniform lengths -> dense (B, G) matrix
         out["generated"] = np.stack([r.output_tokens for r in finished])
+    if obs is not None:
+        if obs.trace_path:
+            engine.tracer.write(obs.trace_path)
+            log.info("chrome trace (%d events) -> %s  [open in "
+                     "https://ui.perfetto.dev]", engine.tracer.n_events,
+                     obs.trace_path)
+        if obs.events_path:
+            engine.tracer.write_events(obs.events_path)
+        if obs.metrics_file:
+            write_snapshot(obs.metrics_file, obs_snapshot(engine),
+                           GAUGE_HELP)
+            log.info("metrics snapshot -> %s (+ .json)", obs.metrics_file)
+        out["observability"] = {
+            "trace_events": engine.tracer.n_events,
+            "counter_drains": engine.counters.n_drains,
+            "counters": engine.counters.totals(),
+            "rates": engine.counters.rates(),
+        }
     if spec is not None:
         st = engine.spec_stats
         rate = st["accepted"] / max(st["proposed"], 1)
@@ -269,6 +305,14 @@ def serve(arch: str, smoke: bool, batch: int, prompt_len: int, gen_len: int,
         log.info("spec decode: k=%d, %d dispatches, accept rate %.0f%% "
                  "(%d/%d drafts)", spec.k, st["dispatches"], 100 * rate,
                  st["accepted"], st["proposed"])
+    if monitor is not None:
+        rep = monitor.drift_report()
+        out["drift"] = rep
+        log.info("drift: %d samples, kl mean %s, %s", rep["n_samples"],
+                 f"{rep['kl_mean']:.3g}" if rep["kl_mean"] is not None
+                 else "n/a",
+                 "IN calibration" if rep["in_calibration"] else
+                 f"FLAGGED layers: {', '.join(rep['flagged_layers'])}")
     log.info("%s slots=%d bits=%s%s | prefill %.2fs, decode %.2fs "
              "(%.1f tok/s, occupancy %.0f%%)", cfg.name, batch, weight_bits,
              " int8" if int8 else "", metrics.prefill_s, metrics.decode_s,
@@ -361,15 +405,29 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--clock", choices=("steps", "wall"), default="steps")
     ap.add_argument("--json", default=None, help="write metrics JSON here")
-    # ---- observability (not ported yet) ----
-    ap.add_argument("--trace", default=None, metavar="PATH")
-    ap.add_argument("--events", default=None, metavar="PATH")
-    ap.add_argument("--metrics-file", default=None, metavar="PATH")
-    ap.add_argument("--metrics-port", type=int, default=None)
-    ap.add_argument("--drain-every", type=int, default=8)
-    ap.add_argument("--drift-every", type=int, default=0)
-    ap.add_argument("--drift-stale", type=float, default=1.0)
-    ap.add_argument("--drift-threshold", type=float, default=1.5)
+    # ---- observability (repro_torch.obs) ----
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write a Chrome trace-event JSON here (load in "
+                         "https://ui.perfetto.dev); also enables the "
+                         "zero-sync device counters")
+    ap.add_argument("--events", default=None, metavar="PATH",
+                    help="write the structured jsonl event log here")
+    ap.add_argument("--metrics-file", default=None, metavar="PATH",
+                    help="write a Prometheus text snapshot (+ sibling "
+                         ".json) at end of run")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="serve a live /metrics endpoint on this port "
+                         "during the run (0 = ephemeral)")
+    ap.add_argument("--drain-every", type=int, default=8,
+                    help="decode bursts between device-counter drains")
+    ap.add_argument("--drift-every", type=int, default=0,
+                    help="FIT drift monitor: sample one fp-reference "
+                         "forward every N decode steps (0 = off)")
+    ap.add_argument("--drift-stale", type=float, default=1.0,
+                    help="simulate S-x stale calibration (ranges "
+                         "shrunk S x; > --drift-threshold flags)")
+    ap.add_argument("--drift-threshold", type=float, default=1.5,
+                    help="activation-range ratio that flags a site")
     args = ap.parse_args()
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname).1s %(name)s] "
@@ -397,8 +455,9 @@ def main() -> None:
                 spec_bits=args.spec_bits, spec_kv_bits=args.spec_kv_bits)
     dump = {"metrics": out["metrics"], "tp": out["tp"],
             "shard_weight_bytes": out["shard_weight_bytes"]}
-    if "spec" in out:
-        dump["spec"] = out["spec"]
+    for k in ("observability", "drift", "spec"):
+        if k in out:
+            dump[k] = out[k]
     print(json.dumps(dump, indent=2))
     if args.json:
         with open(args.json, "w") as f:

@@ -15,6 +15,7 @@ import torch
 from repro_torch.configs import ModelConfig
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import apply_rope, init_dense
+from repro_torch.obs import runtime as obs_rt
 
 
 def init_attention(gen, cfg: ModelConfig, dtype) -> Dict:
@@ -175,7 +176,10 @@ def attention_decode(x: torch.Tensor, p: Dict, cfg: ModelConfig, ctx,
         sc = torch.full((kp.shape[0], kp.shape[2]), KV_SCALE,
                         dtype=torch.float32, device=x.device)
         bits = 8
-    o = _paged_read(q, kp, vp, table, posb, sc, sc, bits).to(x.dtype)
+    # the reference's dense read is no paged-attention dispatch: its
+    # counters stay silent here, as there
+    with obs_rt.suspended():
+        o = _paged_read(q, kp, vp, table, posb, sc, sc, bits).to(x.dtype)
     o = ctx.tap("attn_out", o)
     return ctx.matmul("wo", o, p["wo"]), cache
 
@@ -240,13 +244,20 @@ def attention_decode_paged(x: torch.Tensor, p: Dict, cfg: ModelConfig, ctx,
                 "multi-token paged decode is not supported under "
                 "kv-head-sharded serving (mesh=...)")
         g = q.shape[2] // knew.shape[2]
+        if obs_rt.emitting():
+            # counted once from the REPLICATED positions (tp-invariant);
+            # the per-shard reads below are suspended
+            from repro_torch.kernels.paged_attention import read_token_stats
+            obs_rt.emit("paged_calls", 1.0)
+            obs_rt.emit("paged_tokens_read", read_token_stats(posb[:, 0]))
         outs = []
         for i, (sh, d) in enumerate(zip(lp.shards, lp.mesh.devices)):
             hs = lp.heads(i)
-            outs.append(_update_attend(
-                sh, q[:, :, hs.start * g:hs.stop * g].to(d),
-                knew[:, :, hs].to(d), vnew[:, :, hs].to(d), table.to(d),
-                posb.to(d), pid.to(d), off.to(d), sp.to(d)))
+            with obs_rt.suspended():
+                outs.append(_update_attend(
+                    sh, q[:, :, hs.start * g:hs.stop * g].to(d),
+                    knew[:, :, hs].to(d), vnew[:, :, hs].to(d), table.to(d),
+                    posb.to(d), pid.to(d), off.to(d), sp.to(d)))
         o = lp.mesh.all_gather(outs, dim=2)
     else:
         o = _update_attend(lp, q, knew, vnew, table, posb, pid, off, sp)

@@ -10,6 +10,9 @@ activation site ``ctx.tap(name, a)``; names are scoped with
                           per-block levels (2^bits − 1), the QAT forward
   * ``TapContext``      — adds a zero-valued tap tensor (FIT activation EF)
   * ``CollectContext``  — records activation values (shapes, ranges)
+  * ``RecordTaps``      — records the tap values of any wrapped context,
+                          leaving its matmul routing as it is (the drift
+                          monitor's probe of the serving context)
   * ``DequantContext``  — quantized weights: packed QTensors (``matmul``
                           quantizes the activation per row and runs the
                           ``qmm`` kernel with ``int8_compute=True``, else
@@ -168,6 +171,49 @@ class CollectContext(Context):
     def tap(self, name: str, a: torch.Tensor) -> torch.Tensor:
         self.acts[self.path(name)] = a
         return a
+
+
+class RecordTaps:
+    """Delegating wrapper that records every ``tap`` site's value while
+    leaving all other context behavior (scoping, matmul routing, weight
+    handling) to the wrapped context.
+
+    ``obs.drift`` uses this to collect the QUANTIZED engine's activation
+    taps (e.g. ``router_logits``) through the engine's own
+    ``DequantContext`` — ``CollectContext`` can't, because it would also
+    replace the quantized matmul routing being probed.
+    """
+
+    def __init__(self, inner: Context):
+        self._inner = inner
+        self.acts: Dict[str, torch.Tensor] = {}
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    @contextmanager
+    def scope(self, name: str):
+        with self._inner.scope(name):
+            yield self
+
+    def tap(self, name: str, a: torch.Tensor) -> torch.Tensor:
+        a = self._inner.tap(name, a)
+        self.acts[self._inner.path(name)] = a
+        return a
+
+
+def _emit_replicated(calls: str, xq: torch.Tensor) -> None:
+    """A sharded block's counters, from its REPLICATED pre-shard int8
+    activation (the same at every tp): one call, and on a sampled burst
+    its saturation. The per-shard kernel calls run ``suspended``."""
+    from repro_torch.kernels.qmm import saturation_stats
+    from repro_torch.obs import runtime as obs_rt
+    if obs_rt.emitting():
+        obs_rt.emit(calls, 1.0)
+        if obs_rt.emitting_stats():
+            sat, total = saturation_stats(xq)
+            obs_rt.emit("act_sat", sat)
+            obs_rt.emit("act_elems", total)
 
 
 class DequantContext(Context):
@@ -367,17 +413,21 @@ class ShardedDequantContext(DequantContext):
         mode = self.shard_plan.get(path)
         if mode is None:
             return super().matmul(name, x, w)
+        from repro_torch.obs import runtime as obs_rt
         parts = self._blocks[path]
         lead = x.shape[:-1]
         xq, xs = self._rowquant(x.reshape(-1, x.shape[-1]).to(torch.float32))
         xs = xs.reshape(-1)
-        if isinstance(w, QTensor):
-            y = (self._qmm_col(xq, xs, parts) if mode == "col"
-                 else self._qmm_row(xq, xs, parts))
-        elif mode == "col":
-            y = self._int8_col(xq, xs, parts, self._scales[path])
-        else:
-            y = self._int8_row(xq, xs, parts, self._scales[path])
+        _emit_replicated("qmm_calls" if isinstance(w, QTensor)
+                         else "int8mm_calls", xq)
+        with obs_rt.suspended():
+            if isinstance(w, QTensor):
+                y = (self._qmm_col(xq, xs, parts) if mode == "col"
+                     else self._qmm_row(xq, xs, parts))
+            elif mode == "col":
+                y = self._int8_col(xq, xs, parts, self._scales[path])
+            else:
+                y = self._int8_row(xq, xs, parts, self._scales[path])
         return y.to(self.dtype).reshape(lead + (y.shape[-1],))
 
     def expert_matmul(self, name: str, buf: torch.Tensor, w,
@@ -391,16 +441,19 @@ class ShardedDequantContext(DequantContext):
                 or self.moe_dispatch == "einsum"):
             return super().expert_matmul(name, buf, w, counts)
         from repro_torch.kernels import ops as kops
+        from repro_torch.obs import runtime as obs_rt
         parts = self._blocks[self.path(name)]
         e, c, d = buf.shape
         xq, xs = self._rowquant(buf.reshape(-1, d).to(torch.float32))
+        _emit_replicated("qmm_calls", xq)
         xq, xs = xq.reshape(e, c, d), xs.reshape(e, c, 1)
         cnt = counts.to(torch.int32)
         el = e // len(parts)
-        ys = [kops.grouped_qmm(self._on(xq[i * el:(i + 1) * el], i), wl,
-                               self._on(xs[i * el:(i + 1) * el], i),
-                               self._on(cnt[i * el:(i + 1) * el], i))
-              for i, wl in enumerate(parts)]
+        with obs_rt.suspended():
+            ys = [kops.grouped_qmm(self._on(xq[i * el:(i + 1) * el], i), wl,
+                                   self._on(xs[i * el:(i + 1) * el], i),
+                                   self._on(cnt[i * el:(i + 1) * el], i))
+                  for i, wl in enumerate(parts)]
         return self.mesh.all_gather(ys, dim=0).to(self.dtype)
 
 

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
 from repro_torch.models.layers import init_dense
+from repro_torch.obs import runtime as obs_rt
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict:
@@ -86,6 +87,8 @@ def moe_apply(x: torch.Tensor, p: Dict, cfg: ModelConfig, ctx
     keep = pos < cap
     assigned = torch.sum(onehot, dim=0)                       # (E,)
     counts = torch.clamp_max(assigned, cap).to(torch.int32)
+    if obs_rt.emitting():
+        obs_rt.emit("moe_dropped_tokens", torch.sum(assigned - counts))
 
     # load-balance aux loss (Switch-style): E * Σ_e f_e · p_e
     me = torch.mean(torch.softmax(logits, -1), dim=0)

@@ -59,9 +59,21 @@ head; the scheduler, slot tables, token buffers and the dense scratch
 state stay on the lead device. Every combine is an integer sum or a
 concatenation in order, so an engine at any tp emits the tp=1 tokens.
 
-Not yet ported (raise ``NotImplementedError``): observability,
-speculative decoding under a mesh (refused by the reference too) and the
-ssm, hybrid, audio and vlm families.
+Observability (``EngineConfig(obs=ObsConfig(...))``, ``repro_torch.obs``;
+everything off by default): a Chrome-trace span per request (admit,
+prefill chunks, evict) and per batch-wide dispatch (decode or spec
+bursts, drains) with a jsonl event log (``tracer``); counters whose
+host-known parts are summed on the host and whose data-dependent parts
+(useful tokens from the device slot table, accepted drafts, paged
+tokens read, clip statistics on every ``stats_every``-th burst) are
+added in place on the device, drained in one copy every ``drain_every``
+bursts and at run end (``counters``) — a burst adds no host read of its
+own; dispatch walls with CUDA-event device time (``perf``); and a FIT
+drift monitor's cadenced probe after the bursts (``attach_drift``).
+
+Not yet ported (raise ``NotImplementedError``): speculative decoding
+under a mesh (refused by the reference too) and the ssm, hybrid, audio
+and vlm families.
 """
 from __future__ import annotations
 
@@ -89,6 +101,10 @@ from repro_torch.models.decode import (
     DecodeState, decode_step, init_decode_state, init_paged_decode_state,
     prefill_into, state_insert_slot)
 from repro_torch.models.transformer import require_ported_family
+from repro_torch.obs import DeviceCounters, ObsConfig, Tracer, init_counters
+from repro_torch.obs import runtime as obs_rt
+from repro_torch.obs.perf.timing import DeviceSpan, DispatchTimer
+from repro_torch.obs.trace import ENGINE_TID
 from repro_torch.qtensor import QTensor, tree_has_qtensor
 from repro_torch.serve.metrics import EngineMetrics
 from repro_torch.serve.quantized import make_dequant_context, shard_params
@@ -129,14 +145,16 @@ class EngineConfig:
     # decode burst with a draft/verify dispatch; the emitted tokens stay
     # those of spec=None serving, bit for bit ----
     spec: Optional[SpecConfig] = None
-    # ---- not ported yet: anything but None raises ----
-    obs: Optional[object] = None
+    # ---- observability (repro_torch.obs; everything defaults OFF):
+    # spans and an event log, device counters drained on a cadence,
+    # timed dispatches ----
+    obs: Optional[ObsConfig] = None
 
 
 def _check_supported(cfg: ModelConfig, ecfg: EngineConfig) -> None:
-    if ecfg.obs is not None:
-        raise NotImplementedError(
-            "EngineConfig.obs is not ported to repro_torch yet")
+    if ecfg.obs is not None and not isinstance(ecfg.obs, ObsConfig):
+        raise TypeError(f"EngineConfig.obs must be an obs.ObsConfig "
+                        f"(got {type(ecfg.obs).__name__})")
     if ecfg.spec is not None and not isinstance(ecfg.spec, SpecConfig):
         raise TypeError(f"EngineConfig.spec must be a serve.spec.SpecConfig "
                         f"(got {type(ecfg.spec).__name__})")
@@ -208,6 +226,7 @@ class Engine:
                 log.info("paged KV pools: %s across tp=%d",
                          f"sharded /{self._kv_shards} by kv-head"
                          if self._kv_shards > 1 else "replicated", mesh.size)
+        self._tp = mesh.size if mesh is not None else 1
         self._paged = ecfg.kv_cache == "paged"
         self._pcfg: Optional[PagedKVConfig] = None
         self._kv_ranges = dict(kv_ranges) if kv_ranges else None
@@ -216,6 +235,16 @@ class Engine:
                 cfg, ecfg.max_len, ecfg.max_slots, page_size=ecfg.page_size,
                 num_pages=ecfg.kv_pages, kv_bits=kv_bits)
             self._n_kv_layers = kv_layer_count(cfg)
+        # ---- observability (all off by default; see repro_torch.obs) ----
+        obs = ecfg.obs
+        self._obs: Optional[ObsConfig] = obs
+        self._obs_counters = bool(obs and obs.device_metrics)
+        self.tracer = Tracer(enabled=bool(obs and obs.trace))
+        self.perf: Optional[DispatchTimer] = (
+            DispatchTimer(obs.time_every) if obs and obs.perf else None)
+        self.counters = DeviceCounters()
+        self._drift = None              # an obs.drift.DriftMonitor
+        self._runnable = 0
         self._init_spec()
 
     def _init_spec(self) -> None:
@@ -271,6 +300,62 @@ class Engine:
                 "dense serving's draft KV lane supports 8 (static-scale "
                 f"int8) or 16 bits, got {spec.draft_kv_bits}; packed "
                 "sub-byte widths need kv_cache='paged'")
+
+    def _fresh_counters(self) -> Dict[str, torch.Tensor]:
+        """The device counter buffer on the engine's device when device
+        metrics are on, ``{}`` when off."""
+        if not self._obs_counters:
+            return {}
+        return init_counters(self.device)
+
+    def attach_drift(self, monitor) -> None:
+        """Register an ``obs.drift.DriftMonitor``: its cadenced probe runs
+        after decode bursts, never inside one."""
+        self._drift = monitor
+
+    def _sink(self):
+        """The counter sink of one dispatch (None with counters off); every
+        ``stats_every``-th dispatch also computes the element-wise clip
+        statistics."""
+        if not self._ctr:
+            return None
+        return obs_rt.CounterSink(
+            stats=self._burst_i % self._obs.stats_every == 0)
+
+    def _decode(self, sink, params, state, toks, ctx):
+        if sink is None:
+            return decode_step(params, state, toks, self.cfg, ctx=ctx)
+        with obs_rt.collecting(sink):
+            return decode_step(params, state, toks, self.cfg, ctx=ctx)
+
+    def _count_dispatch(self, sink, steps: int) -> None:
+        """A burst's host-known counters: its steps, itself, its size's
+        histogram bucket, and what its sink summed on the host."""
+        host = self._ctr_host
+        obs_rt.fold(self._ctr, sink, host)
+        obs_rt.ctr_add(host, "decode_bursts", 1)
+        obs_rt.ctr_add(host, "decode_steps", steps)
+        bucket = min(max(steps.bit_length() - 1, 0), obs_rt.HIST_BUCKETS - 1)
+        obs_rt.ctr_add(host, "burst_size_hist", 1, idx=bucket)
+
+    def _drain(self) -> None:
+        """One drain of the counters (the metrics layer's one host read)."""
+        d0 = self.counters.drain_s
+        self.counters.drain(self._ctr, self._ctr_host)
+        if self.perf is not None:
+            self.perf.record("drain", self.counters.drain_s - d0,
+                             tracer=self.tracer)
+
+    def _after_burst(self, steps: int) -> None:
+        """The burst cadence: a drain every ``drain_every`` bursts, then
+        the drift monitor's tap."""
+        self._burst_i += 1
+        de = self._obs.drain_every if self._obs is not None else 0
+        if self._obs_counters and de and self._burst_i % de == 0:
+            with self.tracer.span("drain", cat="obs", tid=ENGINE_TID):
+                self._drain()
+        if self._drift is not None:
+            self._drift.observe(steps)
 
     # ------------------------------------------------------------------
     def _sync(self) -> None:
@@ -358,6 +443,12 @@ class Engine:
         self._temps = torch.zeros(S, dtype=torch.float32, device=dev)
         self._top_ks = torch.zeros(S, dtype=torch.int32, device=dev)
         self._top_ps = torch.ones(S, dtype=torch.float32, device=dev)
+        # the device slot table (active, tokens written, token budget):
+        # written at admission and eviction, advanced on the device by the
+        # bursts; the numpy mirrors below are the scheduler's
+        self._dactive = torch.zeros(S, dtype=torch.bool, device=dev)
+        self._dnw = torch.zeros(S, dtype=torch.int64, device=dev)
+        self._dbudget = torch.zeros(S, dtype=torch.int64, device=dev)
         if self._spec is not None:
             self._dstate = self._fresh_draft_state(self._state)
             self._ptok = torch.zeros((S, 1), dtype=torch.int32, device=dev)
@@ -381,6 +472,11 @@ class Engine:
         if self._paged:
             self.metrics.kv_total_pages = self._pcfg.num_pages
             self.metrics.kv_page_bytes = self._page_bytes
+        self._ctr = self._fresh_counters()
+        self._ctr_host = obs_rt.init_host_counters() if self._ctr else {}
+        self._burst_i = 0
+        run_sid = self.tracer.begin("run", cat="engine", tid=ENGINE_TID) \
+            if self.tracer.enabled else None
         finished: List[Request] = []
         pending = collections.deque(
             sorted(requests, key=lambda r: (r.arrival_time, r.id)))
@@ -396,7 +492,11 @@ class Engine:
                 while (pending and not self._active.all()
                        and pending[0].arrival_time <= self._now()):
                     if not self._admit(pending[0]):
+                        # KV pool full: defer, keep decoding to free pages
                         self.metrics.record_deferral()
+                        self.tracer.event("admission_deferred",
+                                          req=pending[0].id,
+                                          pages_free=self._alloc.available())
                         break
                     pending.popleft()
                     self._harvest(finished)
@@ -425,6 +525,13 @@ class Engine:
                         k = max(1, min(k, int(math.ceil(gap))))
                 self._burst(max(k, 1))
                 self._harvest(finished)
+        if self._obs_counters:
+            self._drain()                        # the final drain
+            self.tracer.event("drain", n=self.counters.n_drains)
+        if run_sid is not None:
+            self.tracer.end(run_sid, {"requests": len(finished),
+                                      "deferrals":
+                                      self.metrics.admission_deferrals})
         finished.sort(key=lambda r: r.id)
         return finished, self.metrics
 
@@ -494,23 +601,49 @@ class Engine:
             shared_len, partial_src, row, gather_ids = plan
         req.slot, req.status = slot, RequestStatus.PREFILLING
         req.t_admitted = self._now()
+        tr = self.tracer
+        rtid = tr.request_tid(req.id) if tr.enabled else ENGINE_TID
+        if tr.enabled:
+            # the request's lifecycle span (its own track in Perfetto),
+            # closed at eviction in _harvest
+            req.obs_span = tr.begin(f"request {req.id}", cat="request",
+                                    tid=rtid,
+                                    args={"prompt_len": req.prompt_len})
+        admit_sid = tr.begin("admit", cat="admit", tid=rtid) \
+            if tr.enabled else None
 
         pstate = init_decode_state(cfg, 1, ecfg.max_len, device=self.device)
         if shared_len > 0:
             # prefix reuse: seed the scratch cache from the shared pages
             # and prefill only the suffix
-            self._gather_prefix(pstate, self._pad_row(gather_ids), shared_len)
+            with tr.span("gather_prefix", cat="admit", tid=rtid,
+                         args={"shared_len": shared_len}):
+                self._gather_prefix(pstate, self._pad_row(gather_ids),
+                                    shared_len)
         prompt = torch.as_tensor(np.asarray(req.prompt, np.int32))[None].to(
             self.device)
         logits = None
         for lo in range(shared_len, req.prompt_len, ecfg.prefill_chunk):
             chunk = prompt[:, lo:lo + ecfg.prefill_chunk]
             t0 = time.perf_counter()
+            span = DeviceSpan(self.device) if self.perf is not None else None
+            sid = tr.begin("prefill_chunk", cat="prefill", tid=rtid) \
+                if tr.enabled else None
             logits, pstate = prefill_into(self.params, pstate, chunk, cfg,
                                           ctx=self._ctx)
+            if span is not None:
+                span.stop()
             self._sync()
-            self.metrics.record_prefill(time.perf_counter() - t0,
-                                        chunk.shape[1])
+            dt = time.perf_counter() - t0
+            if sid is not None:
+                tr.end(sid, {"tokens": int(chunk.shape[1]), "lo": lo})
+            if self.perf is not None:
+                dev_s, compiled = span.read()
+                self.perf.record("prefill_chunk", dt,
+                                 tokens=int(chunk.shape[1]),
+                                 compiled=compiled, tracer=tr,
+                                 device_s=dev_s)
+            self.metrics.record_prefill(dt, chunk.shape[1])
             if ecfg.clock == "steps":
                 self._ticks += chunk.shape[1]
             if (ecfg.interleave_steps
@@ -561,6 +694,9 @@ class Engine:
                                row, gather_ids)
         self._tok[slot] = tok0
         self._out[slot, 0] = int(tok0.item())
+        self._dactive[slot] = True
+        self._dnw[slot] = 1
+        self._dbudget[slot] = req.max_new_tokens
 
         self._slots[slot] = req
         self._active[slot] = True
@@ -568,6 +704,10 @@ class Engine:
         self._budget[slot] = req.max_new_tokens
         req.t_first_token = self._now()
         req.status = RequestStatus.RUNNING
+        if admit_sid is not None:
+            tr.end(admit_sid, {"slot": slot, "shared_len": shared_len})
+        tr.event("admit", req=req.id, slot=slot, shared_len=shared_len,
+                 prompt_len=req.prompt_len)
         return True
 
     def _insert_draft(self, req: Request, slot: int, pstate: DecodeState,
@@ -638,20 +778,35 @@ class Engine:
         cfg = self.cfg
         n_active = int(self._active.sum())
         mode = self._active_mode()
-        active = torch.as_tensor(self._active).to(self.device)
-        nw = (None if mode == "greedy"
-              else torch.as_tensor(self._nwritten).to(self.device))
+        active, nw = self._dactive, self._dnw
+        tr = self.tracer
+        timed = tr.enabled or self.perf is not None
+        sid = tr.begin("decode_burst", cat="decode", tid=ENGINE_TID) \
+            if tr.enabled else None
+        sink = self._sink()
         t0 = time.perf_counter()
+        span = DeviceSpan(self.device) if timed else None
         ys = []
         state, tok = self._state, self._tok
         for i in range(steps):
-            logits, new = decode_step(self.params, state, tok, cfg, ctx=self._ctx)
+            logits, new = self._decode(sink, self.params, state, tok, self._ctx)
             state = new._replace(pos=torch.where(active, new.pos, state.pos))
             nxt = self._sample(logits[:, 0, :cfg.vocab_size], mode,
-                               None if nw is None else nw + i)
+                               None if mode == "greedy" else nw + i)
             tok = torch.where(active[:, None], nxt[:, None], tok)
             ys.append(nxt)
-        ys = torch.stack(ys).cpu().numpy()        # the burst's one sync
+        ys = torch.stack(ys)
+        # the device slot table advances as the output scatter clamps:
+        # an active slot writes min(steps, budget - written) useful tokens
+        adv = torch.where(active, torch.clamp(self._dbudget - nw, 0, steps),
+                          torch.zeros_like(nw))
+        if sink is not None:
+            obs_rt.ctr_add(self._ctr, "decode_tokens", torch.sum(adv))
+            self._count_dispatch(sink, steps)
+        nw += adv
+        if span is not None:
+            span.stop()
+        ys = ys.cpu().numpy()                     # the burst's one sync
         wall = time.perf_counter() - t0
         self._state, self._tok = state, tok
         before = self._nwritten[self._active]
@@ -661,13 +816,31 @@ class Engine:
         self._nwritten[self._active] = after
         if self._paged:
             self._pos_h[self._active] += steps
-        self.metrics.record_burst(wall, steps, n_active,
-                                  n_tokens=int((after - before).sum()),
+        n_tokens = int((after - before).sum())
+        self._record_burst("decode_burst", sid, span, wall, steps, n_active,
+                           n_tokens, [int(x) for x in after - before],
+                           {"steps": steps, "mode": mode})
+
+    def _record_burst(self, kind: str, sid, span, wall: float, steps: int,
+                      n_active: int, n_tokens: int, per_slot: List[int],
+                      args: Dict) -> None:
+        """After a burst's host read: its span, its timing sample, its
+        metrics, the clock, then the drain and drift cadence."""
+        dev_s, compiled = span.read() if span is not None else (None, False)
+        if sid is not None:
+            self.tracer.end(sid, dict(args, n_active=n_active,
+                                      tokens=n_tokens, tp=self._tp,
+                                      compiled=compiled))
+        if self.perf is not None:
+            self.perf.record(kind, wall, tokens=n_tokens, compiled=compiled,
+                             tracer=self.tracer, device_s=dev_s,
+                             args=dict(args, n_active=n_active))
+        self.metrics.record_burst(wall, steps, n_active, n_tokens=n_tokens,
                                   n_runnable=max(n_active, self._runnable),
-                                  per_slot_tokens=[int(x)
-                                                   for x in after - before])
+                                  per_slot_tokens=per_slot)
         if self.ecfg.clock == "steps":
             self._ticks += steps
+        self._after_burst(steps)
 
     def _spec_burst(self) -> None:
         """One draft/verify dispatch. The draft lane lags the emitted
@@ -680,23 +853,27 @@ class Engine:
         prefix plus the correction-or-bonus token is emitted; both lanes
         roll back by position. The dispatch's one host read is the
         emitted tokens, which the scheduler needs."""
-        k, cfg, dev, V = self._spec.k, self.cfg, self.device, self.cfg.vocab_size
+        k, cfg, V = self._spec.k, self.cfg, self.cfg.vocab_size
         if self._paged:
             # the verify writes up to k + 1 serving positions (the draft
             # lane writes through the same table)
             self._grow_tables(k + 1)
         n_active = int(self._active.sum())
         mode = self._active_mode()
-        active = torch.as_tensor(self._active).to(dev)
-        nw = torch.as_tensor(self._nwritten).to(dev)
-        budget = torch.as_tensor(self._budget).to(dev)
+        active, nw, budget = self._dactive, self._dnw, self._dbudget
         act_tok = active[:, None]
         state, dstate, tok = self._state, self._dstate, self._tok
+        tr = self.tracer
+        timed = tr.enabled or self.perf is not None
+        sid = tr.begin("spec_burst", cat="decode", tid=ENGINE_TID) \
+            if tr.enabled else None
+        sink = self._sink()
         t0 = time.perf_counter()
+        span = DeviceSpan(self.device) if timed else None
 
         def draft_step(dst, toks):
-            lg, dnew = decode_step(self._draft_params, dst, toks, cfg,
-                                   ctx=self._dctx)
+            lg, dnew = self._decode(sink, self._draft_params, dst, toks,
+                                    self._dctx)
             return lg, dnew._replace(pos=torch.where(active, dnew.pos,
                                                      dst.pos))
 
@@ -711,12 +888,12 @@ class Engine:
         drafts = torch.stack(drafts, dim=1)                    # (S, k)
 
         # ---- verify: one (k+1)-token forward of the serving config ----
-        logits, vnew = decode_step(self.params, state,
-                                   torch.cat([tok, drafts], dim=1), cfg,
-                                   ctx=self._ctx)
+        logits, vnew = self._decode(sink, self.params, state,
+                                    torch.cat([tok, drafts], dim=1),
+                                    self._ctx)
         tgt = torch.stack([self._sample(logits[:, i, :V], mode, nw + i)
                            for i in range(k + 1)], dim=1)      # (S, k+1)
-        n_emit, _ = accept_drafts(drafts, tgt, active, nw, budget)
+        n_emit, n_match = accept_drafts(drafts, tgt, active, nw, budget)
 
         # next input: the last emitted token; the catch-up pair's first
         # element: the one before it (the old input when one was emitted);
@@ -733,9 +910,19 @@ class Engine:
         step = n_emit.to(state.pos.dtype)
         self._state = vnew._replace(pos=state.pos + step)
         self._dstate = dst._replace(pos=dstate.pos + step)
+        if sink is not None:
+            # exact device tallies: useful tokens and matched drafts
+            obs_rt.ctr_add(self._ctr, "decode_tokens", torch.sum(n_emit))
+            obs_rt.ctr_add(self._ctr, "spec_accepted", torch.sum(
+                torch.where(active, n_match, torch.zeros_like(n_match))))
+            obs_rt.ctr_add(self._ctr_host, "spec_proposed", k * n_active)
+            self._count_dispatch(sink, k + 1)
+        nw += n_emit
 
-        host = torch.cat([n_emit[:, None], tgt.to(n_emit.dtype)],
-                         dim=1).cpu().numpy()           # the one host read
+        host = torch.cat([n_emit[:, None], tgt.to(n_emit.dtype)], dim=1)
+        if span is not None:
+            span.stop()
+        host = host.cpu().numpy()                 # the one host read
         wall = time.perf_counter() - t0
         ne, tgt_h = host[:, 0], host[:, 1:]
         for b in np.flatnonzero(self._active):
@@ -751,12 +938,9 @@ class Engine:
         # only where the budget clamp cut a matched run
         self.spec_stats["accepted"] += int(
             np.maximum(ne[self._active] - 1, 0).sum())
-        self.metrics.record_burst(
-            wall, k + 1, n_active, n_tokens=n_tokens,
-            n_runnable=max(n_active, self._runnable),
-            per_slot_tokens=[int(x) for x in ne[self._active]])
-        if self.ecfg.clock == "steps":
-            self._ticks += k + 1
+        self._record_burst("spec_burst", sid, span, wall, k + 1, n_active,
+                           n_tokens, [int(x) for x in ne[self._active]],
+                           {"k": k, "mode": mode})
 
     # ------------------------------------------------------------------
     def _harvest(self, finished: List[Request]) -> None:
@@ -780,8 +964,14 @@ class Engine:
             req.status = RequestStatus.FINISHED
             self.metrics.record_request(req)
             finished.append(req)
+            tr = self.tracer
+            evict_sid = tr.begin("evict", cat="evict",
+                                 tid=tr.request_tid(req.id),
+                                 args={"slot": int(b)}) \
+                if tr.enabled else None
             self._slots[b] = None
             self._active[b] = False
+            self._dactive[b] = False
             if self._paged:
                 self.metrics.record_kv_request(
                     len(self._rows[b]) * self._page_bytes)
@@ -792,3 +982,9 @@ class Engine:
                 ps = self._state.paged
                 ps.table[b] = self._pcfg.num_pages
                 ps.write_limit[b] = 0
+            if evict_sid is not None:
+                tr.end(evict_sid)
+                if req.obs_span is not None:
+                    tr.end(req.obs_span, {"tokens": int(len(toks))})
+            tr.event("finish", req=req.id, slot=int(b),
+                     tokens=int(len(toks)))

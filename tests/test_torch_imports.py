@@ -30,7 +30,9 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.quant.fake_quant", "repro_torch.quant.calibration",
             "repro_torch.optim.adamw", "repro_torch.checkpoint.checkpointer",
             "repro_torch.launch.fault", "repro_torch.launch.steps",
-            "repro_torch.launch.train", "repro_torch.launch.mesh"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch.launch.mesh",
+            "repro_torch.launch.profile", "repro_torch.obs",
+            "repro_torch.obs.drift", "repro_torch.obs.perf"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -120,6 +122,15 @@ def test_serve_cli_help_loads_neither_jax_nor_repro():
     assert "--int8-compute" in out and "--shared-prefix" in out
 
 
+def test_profile_cli_help_loads_neither_jax_nor_repro():
+    """The profiling CLI takes the reference's flags."""
+    out = _cli_help("repro_torch.launch.profile")
+    for flag in ("--arch", "--smoke", "--weight-bits", "--avg-bits",
+                 "--group-size", "--kv-bits", "--time-every", "--trace",
+                 "--json"):
+        assert flag in out, flag
+
+
 def test_train_cli_help_loads_neither_jax_nor_repro():
     """The training CLI takes the reference's flags and no device flag."""
     out = _cli_help("repro_torch.launch.train")
@@ -154,7 +165,8 @@ def _public(mod, root: str) -> set:
 
 
 @pytest.mark.parametrize("pkg", ["core", "models", "utils", "configs", "quant",
-                                 "kvcache", "serve", "qtensor", "analysis"])
+                                 "kvcache", "serve", "qtensor", "analysis",
+                                 "obs", "obs.perf"])
 def test_package_exports_equal_reference(pkg):
     import importlib
     ref = _public(importlib.import_module(f"repro.{pkg}"), "repro")

@@ -2,8 +2,8 @@
 ``repro.launch.serve`` on the CPU at smoke size: PTQ pinning, closed-loop
 ``generated`` equal to the reference's on the int8-backed paged route
 with a shared prefix, the speculative and sampling flags at smoke size,
-the refusal of flags not ported yet, the GPU default, and ``main()``'s
-JSON dump."""
+the observability flags (their sections with the reference's keys), the
+GPU default, and ``main()``'s JSON dump."""
 import dataclasses
 import json
 import sys
@@ -131,13 +131,70 @@ def test_serve_open_loop_moe_packed():
         assert ((r.output_tokens >= 0) & (r.output_tokens < 256)).all()
 
 
-@pytest.mark.parametrize("flag", [
-    dict(trace_path="t.json"), dict(events_path="e.jsonl"),
-    dict(metrics_file="m.prom"), dict(metrics_port=0), dict(drain_every=4),
-    dict(drift_every=1), dict(drift_stale=2.0), dict(drift_threshold=2.0)])
-def test_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tserve.serve("internlm2_1_8b", True, 2, 8, 4, None, device="cpu", **flag)
+def _reference_observability_keys():
+    """The keys of the reference serve()'s ``out["observability"]`` dict."""
+    import ast
+    import inspect
+    for node in ast.walk(ast.parse(inspect.getsource(jserve.serve))):
+        if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
+                and isinstance(node.targets[0], ast.Subscript)
+                and getattr(node.targets[0].slice, "value", None)
+                == "observability"):
+            return {k.value for k in node.value.keys}
+    raise AssertionError("no observability dict in repro.launch.serve.serve")
+
+
+# each observability flag, with the flag that turns its section on where
+# it does not on its own (as in the reference: --drain-every only paces
+# the counters, --drift-stale / --drift-threshold only tune the monitor)
+OBS_FLAGS = {
+    "trace_path": dict(trace_path="t.json"),
+    "events_path": dict(events_path="e.jsonl"),
+    "metrics_file": dict(metrics_file="m.prom"),
+    "metrics_port": dict(metrics_port=0),
+    "drain_every": dict(drain_every=1, events_path="e.jsonl"),
+    "drift_every": dict(drift_every=1),
+    "drift_stale": dict(drift_stale=3.0, drift_every=2),
+    "drift_threshold": dict(drift_threshold=2.0, drift_every=2),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(OBS_FLAGS))
+def test_observability_flags_run(flag, tmp_path, monkeypatch):
+    """Each of the eight observability flags runs ``serve()``: the
+    ``observability`` and ``drift`` sections carry the reference's keys;
+    the files are written; a drain cadence of 1 drains every burst."""
+    from repro.obs.drift import DriftMonitor as JDriftMonitor
+    monkeypatch.chdir(tmp_path)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = tserve.serve("internlm2_1_8b", True, 2, 8, 4, None, packed=True,
+                           int8_compute=True, paged=True, device="cpu",
+                           **OBS_FLAGS[flag])
+    finally:
+        torch.set_num_threads(n)
+    kw = OBS_FLAGS[flag]
+    assert ("observability" in out) == ("drift_every" not in kw)
+    assert ("drift" in out) == ("drift_every" in kw)
+    if "observability" in out:
+        ob = out["observability"]
+        assert set(ob) == _reference_observability_keys()
+        assert ob["counters"]["decode_tokens"] == out["metrics"]["decode_tokens"]
+        # a drain every drain_every bursts, and one at the end
+        every = kw.get("drain_every", 8)
+        assert ob["counter_drains"] == \
+            ob["counters"]["decode_bursts"] // every + 1
+    if "drift" in out:
+        assert set(out["drift"]) == set(JDriftMonitor(None, {}).drift_report())
+        assert out["drift"]["n_samples"] >= 1
+        if flag == "drift_stale":
+            assert not out["drift"]["in_calibration"]
+    for key in ("trace_path", "events_path", "metrics_file"):
+        if key in kw:
+            assert (tmp_path / kw[key]).stat().st_size > 0
+    if "metrics_file" in kw:
+        assert (tmp_path / "m.prom.json").exists()
 
 
 SPEC_KW = dict(packed=True, paged=True, kv_bits=8, n_requests=3, rate=0.5)

@@ -126,12 +126,12 @@ def test_entry_points_raise_without_gpu(packed, monkeypatch):
 @pytest.mark.parametrize("bad", [dict(spec=object()), dict(obs=object()),
                                  dict(mesh=object())])
 def test_unsupported_engine_options_raise(packed, bad):
-    """Observability is not ported yet (NotImplementedError); a spec that
-    is not a SpecConfig raises TypeError, a mesh that is not a TPMesh
-    ValueError naming make_tp_mesh."""
+    """A spec that is not a SpecConfig and an obs that is not an
+    ObsConfig raise TypeError, a mesh that is not a TPMesh ValueError
+    naming make_tp_mesh."""
     _, _, tcfg, tq = packed
     exc, match = {"spec": (TypeError, "SpecConfig"),
-                  "obs": (NotImplementedError, "not ported"),
+                  "obs": (TypeError, "ObsConfig"),
                   "mesh": (ValueError, "make_tp_mesh")}[next(iter(bad))]
     with pytest.raises(exc, match=match):
         TEngine(tq, tcfg, TEngineConfig(**dict(ECFG, **bad)), device="cpu")
