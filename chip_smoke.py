@@ -21,10 +21,12 @@ Phases, in order; any failure exits non-zero:
      launch with no input copy when a row is whole 16-byte chunks), and
      that every route of the per-channel fake-quant plan is checked;
   3a. the packed paged decode of every ported config's smoke variant
-     (SMOKE_ARCHS) on the card against the CPU plain path;
+     (SMOKE_ARCHS; the ssm family from its dense state) on the card
+     against the CPU plain path;
   3b. drive each main path at full width — internlm2_1_8b,
-     llama3_8b, phi3_mini_3_8b and minitron_4b (dense; the last two cut
-     to 8 layers), olmoe_1b_7b and deepseek_moe_16b (MoE, grouped_qmm) —
+     llama3_8b, phi3_mini_3_8b and minitron_4b (dense), olmoe_1b_7b and
+     deepseek_moe_16b (MoE, grouped_qmm); each but minitron (full depth)
+     cut to PATH_LAYERS = 8 layers —
      seeded init -> FIT report
      (its peak memory within 1.3 x the parameter bytes + 2 GB; for
      internlm2_1_8b again on a two-shard data-parallel mesh, equal within
@@ -33,14 +35,14 @@ Phases, in order; any failure exits non-zero:
      dense paths, grouped == dense for MoE), with every kernel launch
      counter reset just before each path and read just after its
      serving run;
-  3c. the serving CLI's path at full width: repro_torch.launch.serve.serve()
-     on internlm2_1_8b with int8-backed W8 weights through int8_matmul,
-     paged int8 KV with a 24-token shared prefix (prefix sharing and a
-     copy-on-write page), counters reset just before it and read just
-     after; then the sharing contract at full width (paged bf16 pages
-     with sharing == the dense cache == paged without sharing), and the
-     CLI itself (python -m repro_torch.launch.serve --smoke ...) in a
-     subprocess;
+  3c. the serving CLI's path at full width and 8 layers:
+     repro_torch.launch.serve.serve() on internlm2_1_8b with int8-backed
+     W8 weights through int8_matmul, paged int8 KV with a 24-token shared
+     prefix (prefix sharing and a copy-on-write page), counters reset
+     just before it and read just after; then the sharing contract at
+     full width (paged bf16 pages with sharing == the dense cache ==
+     paged without sharing), and the CLI itself (python -m
+     repro_torch.launch.serve --smoke ...) in a subprocess;
   3d. the quantization library at full width (internlm2_1_8b): activation
      ranges calibrated with MinMaxObserver/EmaObserver, every weight block
      and activation fake-quantized through the STE (fake_quant and
@@ -78,6 +80,14 @@ Phases, in order; any failure exits non-zero:
      layers, one batch of 4 x 128: the EF traces and Hutchinson's
      per-block Hessian traces (8 probes, fp32, seeded), each timed, their
      Spearman correlation, finite and deterministic under one seed;
+  3j. the recurrent families at full width (``RECURRENT_PATHS``):
+     mamba2_130m (24 layers, dense per-slot SSM state) and zamba2_7b
+     (cut to 15 layers; paged at FIT KV widths) each through the main
+     path (report peak within 1.3 x params + 2 GB, W8/W4 QTensors,
+     Poisson serving, alone == batched); on zamba2_7b's params 16-bit
+     pages == the dense cache and tp=2 on one card == tp=1; state bytes
+     a slot; last, a decode step of each under the profiler (launches
+     and device ms a step);
   4. print the kernels line and the main-path metrics;
   5. print {"ok": true, "device": {...}} as the last line.
 
@@ -87,6 +97,7 @@ Imports torch and the port only.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -158,8 +169,10 @@ def bound_ms(nbytes: float, ops: float, peak_ops: float):
 
 # the (1, N) rows the main paths' weight traces give the kernel, one
 # block and one sample at a time: minitron_4b's embedding/head
-# (256000 x 3072), llama3_8b's (128256 x 4096), a norm's scale
-EF_PATH_ROWS = (786_432_000, 525_336_576, 2048)
+# (256000 x 3072), llama3_8b's (128256 x 4096), zamba2_7b's wz/wx/out_proj
+# (3584 x 7168), a Mamba2 conv weight in fp32 (4 x 7424), a norm's scale
+EF_PATH_ROWS = (786_432_000, 525_336_576, 25_690_112, 2048)
+EF_PATH_ROWS_F32 = (29_696,)
 
 
 def check_ef_sqnorm(timer, gen, rows):
@@ -173,8 +186,10 @@ def check_ef_sqnorm(timer, gen, rows):
         err = (got - want).abs().max().item()
         if not torch.allclose(got, want, rtol=1e-4, atol=0):
             raise AssertionError(f"ef_sqnorm {label}: {got} vs {want}")
-        b_ms, b_by = bound_ms(b * n * 2 + 4 * b, 2 * b * n, FP32_FLOPS)
-        row = {"kernel": "ef_sqnorm", "shape": f"{label} bf16",
+        b_ms, b_by = bound_ms(b * n * g.element_size() + 4 * b, 2 * b * n,
+                              FP32_FLOPS)
+        dt = "bf16" if g.dtype == torch.bfloat16 else "fp32"
+        row = {"kernel": "ef_sqnorm", "shape": f"{label} {dt}",
                "max_abs_err": err,
                "rel_err": (err / want.abs().max().item()),
                "ms": timer(lambda: kmod.ef_sqnorm(g)),
@@ -201,6 +216,9 @@ def check_ef_sqnorm(timer, gen, rows):
                         dtype=torch.float32).mul_(1e-3).to(torch.bfloat16)
         check(g, f"(1, {n})")
         del g
+    for n in EF_PATH_ROWS_F32:
+        check(torch.randn((1, n), generator=gen, device="cuda",
+                          dtype=torch.float32).mul_(1e-3), f"(1, {n})")
 
 
 QMM_SHAPES = [("wq/wo", 2048, 2048), ("wk/wv", 2048, 1024),
@@ -213,6 +231,17 @@ QMM_SHAPES = [("wq/wo", 2048, 2048), ("wk/wv", 2048, 1024),
 QMM_PATH_SHAPES = [("llama3 head", 4096, 128256), ("llama3 w_down", 14336, 4096),
                    ("minitron head", 3072, 256000), ("minitron w_down", 9216, 3072),
                    ("phi3 head", 3072, 32064)]
+# the recurrent families' projections (phase 3j): mamba2_130m's wdt (N =
+# 24, less than one 32-column tile), wB/wC and out_proj; zamba2_7b's
+# wB/wC (N = 64), wdt (N = 112), wz/wx, out_proj (56 groups), and the
+# tp=2 column shards of its wdt (N = 56) and wB/wC (N = 32)
+QMM_RECURRENT_SHAPES = [("mamba2 wdt", 768, 24), ("mamba2 wB/wC", 768, 128),
+                        ("mamba2 out_proj", 1536, 768),
+                        ("zamba2 wB/wC", 3584, 64), ("zamba2 wdt", 3584, 112),
+                        ("zamba2 wz/wx", 3584, 7168),
+                        ("zamba2 out_proj", 7168, 3584),
+                        ("zamba2 wdt tp=2 shard", 3584, 56),
+                        ("zamba2 wB/wC tp=2 shard", 3584, 32)]
 
 
 def check_one_launch(kmod, xq, qt, xs) -> dict:
@@ -286,7 +315,8 @@ def check_qmm(timer, gen, rows, shapes=QMM_SHAPES, widths=(8, 6, 4, 3),
 # token a step); a ragged M=3; a stress M=32 the path never gives (4
 # tiles in one launch); 6- and 3-bit payloads; a ragged N (not a multiple
 # of 4: the byte-wise load path); zamba2_7b's w_down (G=112: more groups
-# than a CTA's pass holds, so the fold runs in two passes); and a group of
+# than a CTA's pass holds, so the fold runs in two passes) and its Mamba2
+# out_proj (G=56, row-parallel at tp=2 in phase 3j); and a group of
 # 120 (not a whole number of k32 steps: the kernel's checked path)
 QMM_GROUPS_SHAPES = [("wo", 2048, 2048, 8, 4, 128),
                      ("w_down", 8192, 2048, 4, 4, 128),
@@ -305,6 +335,8 @@ QMM_GROUPS_SHAPES = [("wo", 2048, 2048, 8, 4, 128),
                      ("zamba2 w_down", 14336, 3584, 8, 1, 128),
                      ("zamba2 w_down", 14336, 3584, 4, 4, 128),
                      ("zamba2 w_down", 14336, 3584, 4, 1, 128),
+                     ("zamba2 out_proj", 7168, 3584, 8, 1, 128),
+                     ("zamba2 out_proj", 7168, 3584, 4, 4, 128),
                      ("group 120", 1920, 2048, 8, 4, 120),
                      ("group 120", 1920, 2048, 8, 1, 120)]
 
@@ -1030,9 +1062,15 @@ PHASE2 = [("ef_sqnorm", check_ef_sqnorm, {}),
            {"kvh": 8, "g": 3, "widths": (8, 4, 16)}),
           ("paged_attention", check_paged_attention,
            {"kvh": 32, "g": 1, "dh": 96, "widths": (8, 4, 16)}),
+          # zamba2_7b's shared attention: G = 1 at Dh = 112 (seven 16-value
+          # chunks a row) over 32 kv heads
+          ("paged_attention", check_paged_attention,
+           {"kvh": 32, "g": 1, "dh": 112, "widths": (8, 4, 16)}),
           ("qmm", check_qmm, {}),
           ("qmm", check_qmm, {"shapes": QMM_PATH_SHAPES, "widths": (8, 4),
                               "ms": (4,)}),
+          ("qmm", check_qmm, {"shapes": QMM_RECURRENT_SHAPES, "widths": (8, 4),
+                              "ms": (1, 4)}),
           ("qmm_groups", check_qmm_groups, {}),
           ("grouped_qmm", check_grouped_qmm, {}),
           ("grouped_qmm", check_grouped_qmm,
@@ -1187,6 +1225,12 @@ def main() -> int:
         result["hessian_path"] = hp = hessian_path()
         log(f"phase 3h: FIT against the Hessian in {time.perf_counter() - t0:.1f} s")
         log(json.dumps({"hessian_path": hp}))
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        result["recurrent_path"] = rp = recurrent_path()
+        log(f"phase 3j: the recurrent families in {time.perf_counter() - t0:.1f} s")
+        log(json.dumps({"recurrent_path": rp}))
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1196,7 +1240,8 @@ def main() -> int:
     mps = result["main_paths"]
     paths = ([mp["launches"] for mp in mps.values()]
              + [tpp["launches"], spp["launches"], op["launches"],
-                cp["launches"], lp["launches"], tp["launches"], hp["launches"]])
+                cp["launches"], lp["launches"], tp["launches"], hp["launches"]]
+             + list(rp["launches"].values()))
     log(json.dumps({"kernels": kernels_line(rows, paths)}))
     for arch, mp in mps.items():
         log(f"[{card}] {arch} ({mp['layers']} layers): report "
@@ -1284,8 +1329,9 @@ def main() -> int:
     log(f"[{card}] 3i profile CLI: {op['profile_cli']['sites']} sites, "
         f"{op['profile_cli']['wall_s']:.1f} s; phase 3i seconds: " + ", ".join(
             f"{k} {v:.1f}" for k, v in op["seconds"].items()))
-    log(f"[{card}] launch.serve internlm2_1_8b --int8 --int8-compute --paged: "
-        f"int8-backed weights {cp['weight_bytes'] / 1e9:.3f} GB; decode "
+    log(f"[{card}] launch.serve internlm2_1_8b --int8 --int8-compute --paged "
+        f"({cp['layers']} layers): int8-backed weights "
+        f"{cp['weight_bytes'] / 1e9:.3f} GB; decode "
         f"{cp['decode_tokens_per_s']:.1f} tok/s; TTFT p50 {cp['ttft_p50']:.3f} s "
         f"p95 {cp['ttft_p95']:.3f} s; shared {cp['kv_shared_tokens']} tokens, "
         f"{cp['kv_cow_copies']} COW copies; device busy "
@@ -1304,11 +1350,39 @@ def main() -> int:
         f"Hutchinson ({hp['probes']} probes, fp32) {hp['hutchinson_s']:.2f} s; "
         f"Spearman of the {hp['blocks']} per-block traces "
         f"{hp['spearman']:.4f}")
+    log_recurrent(card, rp)
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def log_recurrent(card: str, rp: dict) -> None:
+    """Phase 3j's summary lines."""
+    for arch, mp in rp["paths"].items():
+        st, sb = mp["step"], mp["state_bytes_per_slot"]
+        log(f"[{card}] 3j {arch} ({mp['layers']} layers): report "
+            f"{mp['report_s']:.2f} s, report_peak_mem_gb "
+            f"{mp['report_peak_mem_gb']:.2f} beside param_bytes "
+            f"{mp['param_bytes'] / 1e9:.2f} GB; packed weights "
+            f"{mp['packed_bytes'] / 1e9:.3f} GB vs FIT-predicted "
+            f"{mp['predicted_bytes'] / 1e9:.3f} GB; KV widths "
+            f"{mp['kv_bits'] or 'none'}; decode {mp['decode_tokens_per_s']:.1f} "
+            f"tok/s, {mp['decode_ms_per_step']:.1f} ms a step; TTFT p50 "
+            f"{mp['ttft_p50']:.3f} s p95 {mp['ttft_p95']:.3f} s; state a slot "
+            f"{sb['h'] / 1e6:.1f} MB h + {sb['conv'] / 1e6:.2f} MB conv, KV pool "
+            f"{(mp['kv_pool_bytes'] or 0) / 1e6:.1f} MB; step at batch "
+            f"{st['batch']}: "
+            f"{st['launches_per_step']:.0f} launches, host "
+            f"{st['host_ms_per_step']:.1f} ms, device "
+            f"{st['device_ms_per_step']:.2f} ms; peak {mp['peak_mem_gb']:.1f} GB")
+    t2 = rp["tp2"]
+    log(f"[{card}] 3j zamba2_7b tp=2 on one card == tp=1 ({t2['blocks']} blocks, "
+        f"{t2['kv_shards']} kv shards): decode {t2['decode_tokens_per_s']:.1f} "
+        f"tok/s, {t2['decode_ms_per_step']:.1f} ms a step; 16-bit pages == "
+        f"dense cache over {rp['paged_equals_dense']['tokens']} tokens; phase "
+        "3j seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in rp["seconds"].items()))
 
 
 KERNELS = [
@@ -1336,16 +1410,36 @@ KERNELS = [
      "causal S=T=2048 B=4 H=16 D=128 bfloat16"),
 ]
 SMOKE_ARCHS = ("internlm2_1_8b", "olmoe_1b_7b", "deepseek_moe_16b", "llama3_8b",
-               "phi3_mini_3_8b", "minitron_4b")
+               "phi3_mini_3_8b", "minitron_4b", "mamba2_130m", "zamba2_7b")
 # full-width main paths (arch, Poisson requests, with the profiler and
 # decode-step A/B extras, layers: None for full depth), driven in this
-# order; phases 3f and 3g reuse the first two; phi3 is cut to 8 of its
-# 32 layers to keep the script inside its time limit; minitron keeps
-# its full depth, where its report peak sits nearest the memory bound
-MAIN_PATHS = (("internlm2_1_8b", 8, True, None), ("olmoe_1b_7b", 8, True, None),
-              ("llama3_8b", 8, False, None), ("deepseek_moe_16b", 8, False, None),
-              ("phi3_mini_3_8b", 4, False, 8), ("minitron_4b", 4, False, None))
+# order; phases 3f, 3g and 3i reuse the first two. Serving is paced by
+# the host, one decode step's launches a layer, so a path's wall grows
+# with its depth: every path but minitron is cut to PATH_LAYERS to keep
+# the script near half its time limit; minitron keeps its full depth,
+# where its report peak sits nearest the memory bound
+PATH_LAYERS = 8
+MAIN_PATHS = (("internlm2_1_8b", 8, True, PATH_LAYERS),
+              ("olmoe_1b_7b", 8, True, PATH_LAYERS),
+              ("llama3_8b", 8, False, PATH_LAYERS),
+              ("deepseek_moe_16b", 8, False, PATH_LAYERS),
+              ("phi3_mini_3_8b", 4, False, PATH_LAYERS),
+              ("minitron_4b", 4, False, None))
 REUSED_PATHS = ("internlm2_1_8b", "olmoe_1b_7b")
+
+
+@contextlib.contextmanager
+def cut_depth(module, layers: int):
+    """``module.get_config`` returns its configs cut to ``layers`` (full
+    width) inside the block: the entry points that look a config up by
+    name (``launch.serve.serve``, ``launch.train.train``) run cut."""
+    full = module.get_config
+    module.get_config = lambda name: dataclasses.replace(full(name),
+                                                         num_layers=layers)
+    try:
+        yield
+    finally:
+        module.get_config = full
 # the data-parallel report: this path's report again on a two-shard mesh
 DP_REPORT_ARCH = "internlm2_1_8b"
 # the kernels each main path must launch ("cli": the serving CLI's
@@ -1365,6 +1459,10 @@ PATH_KERNELS = {"dense": ("ef_sqnorm", "qmm", "paged_attention"),
                 "spec_int8": ("int8_matmul", "paged_attention"),
                 # phase 3h: the FIT report's EF traces beside Hutchinson
                 "hessian": ("ef_sqnorm",),
+                # phase 3j: the recurrent families, and the hybrid at tp=2
+                "ssm": ("ef_sqnorm", "qmm"),
+                "hybrid": ("ef_sqnorm", "qmm", "paged_attention"),
+                "hybrid_tp": ("qmm_groups", "qmm", "paged_attention"),
                 # phase 3i: obs-enabled serving, by route
                 "obs": ("qmm", "paged_attention"),
                 "obs_moe": ("qmm", "grouped_qmm", "paged_attention"),
@@ -1400,28 +1498,35 @@ def read_counts() -> dict:
 
 
 def check_small_reference(arch: str) -> float:
-    """The packed paged decode path on the card against the same path on
-    the CPU (plain versions) at a smoke config: per-step logits agree.
+    """The packed paged decode path (a dense state for the ssm family,
+    which holds no KV) on the card against the same path on the CPU
+    (plain versions) at a smoke config: per-step logits agree.
     Tolerance 2e-2 absolute on logits of size ~1: fp32 sums run in
     another order, so a value at a rounding boundary may land one grid
     step apart in an activation's per-row int8 grid or in a 4-bit KV
     page, which moves a logit by a few 1e-3."""
     from repro_torch.configs import smoke_config
-    from repro_torch.kvcache.paged import PagedKVConfig
+    from repro_torch.kvcache.paged import PagedKVConfig, kv_layer_count
     from repro_torch.models.context import DequantContext
-    from repro_torch.models.decode import decode_step, init_paged_decode_state
+    from repro_torch.models.decode import (
+        decode_step, init_decode_state, init_paged_decode_state)
     from repro_torch.models.transformer import init_params
     from repro_torch.serve.quantized import quantize_params
 
     cfg = smoke_config(arch)
+    n_kv = kv_layer_count(cfg)
     out = {}
     for dev in ("cpu", "cuda"):
         params = init_params(cfg, seed=0, device="cpu")
         qp, _ = quantize_params(params, 4, group_size=16, device=dev)
-        pc = PagedKVConfig.build(cfg, 32, 2, page_size=8, kv_bits={0: 8, 1: 4})
-        st = init_paged_decode_state(cfg, pc, 2, device=dev)
-        st.paged.table.copy_(torch.arange(8, dtype=torch.int32).reshape(2, 4))
-        st.paged.write_limit.fill_(32)
+        if n_kv:
+            pc = PagedKVConfig.build(cfg, 32, 2, page_size=8, kv_bits={
+                i: (8, 4)[i % 2] for i in range(n_kv)})
+            st = init_paged_decode_state(cfg, pc, 2, device=dev)
+            st.paged.table.copy_(torch.arange(8, dtype=torch.int32).reshape(2, 4))
+            st.paged.write_limit.fill_(32)
+        else:
+            st = init_decode_state(cfg, 2, 32, device=dev)
         ctx = DequantContext(None, cfg.param_dtype, int8_compute=True)
         toks = (torch.arange(2 * 12, dtype=torch.int32).reshape(2, 12) * 7
                 % cfg.vocab_size)
@@ -1438,21 +1543,25 @@ def check_small_reference(arch: str) -> float:
 
 
 def main_path(arch: str, n_requests: int = 8, extras: bool = True,
-              layers=None):
+              layers=None, prompt_len=(16, 64)):
     """One full-width main path; returns its metrics and what phase 3f
     needs to serve the same requests sharded. Every kernel counter is set
     to 0 at the start and read right after the serving run. The report's
     peak memory must stay within 1.3 x the parameter bytes + 2 GB (the
     per-sample gradient tree never exists whole). ``extras``: the
     decode-step A/B around the first profiler sessions and the serving
-    profile. ``layers``: the depth, if cut (full width all the same)."""
+    profile. ``layers``: the depth, if cut (full width all the same);
+    ``prompt_len``: the requests' prompt range (each prompt token is one
+    host-paced decode step). A
+    family that holds no KV (ssm) serves from the dense per-slot state,
+    with neither KV taps in its report nor FIT KV widths."""
     from repro_torch.configs import get_config
     from repro_torch.core.report import build_report
     from repro_torch.launch.mesh import TPMesh
     from repro_torch.utils.pytree import tree_bytes
     from repro_torch.data.synthetic import LMStreamConfig, lm_batches
     from repro_torch.kvcache.fit import allocate_kv_bits, kv_report_fns
-    from repro_torch.kvcache.paged import dense_kv_bytes
+    from repro_torch.kvcache.paged import dense_kv_bytes, kv_layer_count
     from repro_torch.models.transformer import init_params, loss_fn
     from repro_torch.qtensor import storage_summary
     from repro_torch.quant.policy import QuantPolicy
@@ -1478,12 +1587,14 @@ def main_path(arch: str, n_requests: int = 8, extras: bool = True,
     stream = lm_batches(LMStreamConfig(vocab_size=cfg.vocab_size, seq_len=128,
                                        global_batch=4, seed=0))
     batches = [next(stream) for _ in range(2)]
-    tap_loss, tap_shapes, act_fn = kv_report_fns(cfg)
+    paged = kv_layer_count(cfg) > 0
+    tap_loss, tap_shapes, act_fn = kv_report_fns(cfg) if paged else (None,) * 3
 
     def report_on(mesh=None):
         return build_report(lambda p, b: loss_fn(p, b, cfg), tap_loss,
-                            lambda b: tap_shapes(params, b), act_fn, params,
-                            batches, tolerance=None, max_batches=2, mesh=mesh)
+                            tap_shapes and (lambda b: tap_shapes(params, b)),
+                            act_fn, params, batches, tolerance=None,
+                            max_batches=2, mesh=mesh)
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1528,17 +1639,21 @@ def main_path(arch: str, n_requests: int = 8, extras: bool = True,
     res["predicted_bytes"] = ws["predicted_bytes"]
 
     ecfg = EngineConfig(max_slots=4, max_len=256, max_new_tokens=32,
-                        prefill_chunk=32, page_size=16, kv_cache="paged",
+                        prefill_chunk=32, page_size=16,
+                        kv_cache="paged" if paged else "dense",
                         int8_compute=True, prefix_sharing=False, clock="wall")
-    kv_elems = dense_kv_bytes(cfg, ecfg.max_slots, ecfg.max_len, bits=8)
-    kv_bits = allocate_kv_bits(report, cfg, QuantPolicy(), 6.0 / 8.0 * kv_elems,
-                               tokens=ecfg.max_slots * ecfg.max_len)
-    res["kv_bits"] = {str(k): v for k, v in kv_bits.items()}
+    kv_bits = None
+    if paged:
+        kv_elems = dense_kv_bytes(cfg, ecfg.max_slots, ecfg.max_len, bits=8)
+        kv_bits = allocate_kv_bits(report, cfg, QuantPolicy(),
+                                   6.0 / 8.0 * kv_elems,
+                                   tokens=ecfg.max_slots * ecfg.max_len)
+    res["kv_bits"] = {str(k): v for k, v in (kv_bits or {}).items()}
     engine = Engine(qparams, cfg, ecfg, kv_bits=kv_bits,
                     kv_ranges=report.act_ranges)
 
     def requests():
-        return poisson_requests(cfg, n_requests, rate=4.0, prompt_len=(16, 64),
+        return poisson_requests(cfg, n_requests, rate=4.0, prompt_len=prompt_len,
                                 gen_len=(8, 32), seed=1)
 
     t0 = time.perf_counter()
@@ -1586,6 +1701,7 @@ def main_path(arch: str, n_requests: int = 8, extras: bool = True,
                                   "ttft_p50", "ttft_p95", "e2e_p50",
                                   "token_latency_p50_ms", "decode_tokens",
                                   "kv_peak_bytes", "kv_pool_bytes")})
+    res["decode_ms_per_step"] = 1e3 * metrics.decode_s / max(metrics.decode_steps, 1)
     # the peak counter was reset before and after the report
     res["peak_mem_gb"] = max(res["init_peak_mem_gb"], res["report_peak_mem_gb"],
                              torch.cuda.max_memory_allocated() / 1e9)
@@ -1961,8 +2077,8 @@ def spec_path(kept: dict) -> dict:
       * olmoe_1b_7b, k = 3, greedy, capacity factor 8 (non-binding), the
         serving tree as its own draft on the integer kernels with 4-bit
         draft pools: streams equal plain;
-      * ``launch.serve.serve()`` at full width with int8-backed W8 through
-        int8_matmul, sampled, ``spec_k=4, spec_kv_bits=4``: streams equal
+      * ``launch.serve.serve()`` at full width and ``PATH_LAYERS`` layers
+        with int8-backed W8 through int8_matmul, sampled, ``spec_k=4, spec_kv_bits=4``: streams equal
         the same engine's plain run; then the CLI itself at smoke size in
         a subprocess with ``--spec-k 4 --spec-kv-bits 4 --temperature
         0.8``;
@@ -1970,7 +2086,7 @@ def spec_path(kept: dict) -> dict:
         greedy one, in turns (``sampler_ab``)."""
     from repro_torch.core.fit import allocate_draft_bits
     from repro_torch.launch.mesh import TPMesh
-    from repro_torch.launch.serve import serve
+    from repro_torch.launch import serve as smod
     from repro_torch.models.context import DequantContext
     from repro_torch.models.decode import init_decode_state
     from repro_torch.serve.engine import Engine
@@ -2125,11 +2241,12 @@ def spec_path(kept: dict) -> dict:
     # ---- the serving CLI's int8-backed path, sampled and speculative ----
     reset_counts()
     t0 = time.perf_counter()
-    out = serve("internlm2_1_8b", False, 4, 16, 16, 8, int8=True,
-                int8_compute=True, n_requests=4, rate=4.0, paged=True,
-                page_size=16, kv_bits=8, spec_k=SPEC_K,
-                spec_kv_bits=SPEC_DRAFT_KV_BITS,
-                sampling=SamplingParams(seed=300, **SAMPLED))
+    with cut_depth(smod, PATH_LAYERS):
+        out = smod.serve("internlm2_1_8b", False, 4, 16, 16, 8, int8=True,
+                         int8_compute=True, n_requests=4, rate=4.0,
+                         paged=True, page_size=16, kv_bits=8, spec_k=SPEC_K,
+                         spec_kv_bits=SPEC_DRAFT_KV_BITS,
+                         sampling=SamplingParams(seed=300, **SAMPLED))
     torch.cuda.synchronize()
     launches = read_counts()
     for name, v in launches.items():
@@ -2195,21 +2312,24 @@ def cli_path():
     """Phase 3c: ``launch.serve.serve()`` as the CLI runs it (``--arch
     internlm2_1_8b --batch 4 --prompt-len 64 --gen-len 32 --weight-bits 8
     --int8 --int8-compute --requests 8 --rate 4 --clock wall --paged
-    --page-size 16 --kv-bits 8 --shared-prefix 24``) at full width. The
-    prefix ends inside a page, so admission shares a full page and
-    copies the boundary page on write."""
-    from repro_torch.launch.serve import serve
+    --page-size 16 --kv-bits 8 --shared-prefix 24``) at full width and
+    ``PATH_LAYERS`` layers. The prefix ends inside a page, so admission
+    shares a full page and copies the boundary page on write."""
+    from repro_torch.launch import serve as smod
 
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    out = serve("internlm2_1_8b", False, 4, 64, 32, 8, int8=True,
-                int8_compute=True, n_requests=8, rate=4.0, clock="wall",
-                paged=True, page_size=16, kv_bits=8, shared_prefix=24)
+    with cut_depth(smod, PATH_LAYERS):
+        out = smod.serve("internlm2_1_8b", False, 4, 64, 32, 8, int8=True,
+                         int8_compute=True, n_requests=8, rate=4.0,
+                         clock="wall", paged=True, page_size=16, kv_bits=8,
+                         shared_prefix=24)
     torch.cuda.synchronize()
     res = {"serve_s": time.perf_counter() - t0, "launches": read_counts()}
     engine = out["engine"]
     cfg = engine.cfg
+    res["layers"] = cfg.num_layers
     fin = out["requests"]
     if len(fin) != 8:
         raise AssertionError(f"launch.serve: {len(fin)} of 8 requests finished")
@@ -2505,25 +2625,23 @@ def train_path(arch: str = "internlm2_1_8b", steps: int = 12, batch: int = 4,
     # resume contract: full width, 2 layers (checkpoints of ~5 GB)
     gc.collect()
     torch.cuda.empty_cache()
-    full = tmod.get_config
-    tmod.get_config = lambda name: dataclasses.replace(full(name), num_layers=2)
     tmp = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
     try:
-        kw = dict(ckpt_dir=tmp, ckpt_every=3, **qat)
-        t0 = time.perf_counter()
-        first = tmod.train(arch, False, 6, batch, seq, resume=False, **kw)
-        (Path(tmp) / "LATEST").write_text("step_00000003")
-        again = tmod.train(arch, False, 6, batch, seq, resume=True, **kw)
-        res["resume"] = {"layers": 2, "first": first["losses"],
-                         "resumed": again["losses"],
-                         "wall_s": time.perf_counter() - t0,
-                         "ckpt_bytes": sum(f.stat().st_size for f in
-                                           Path(tmp).rglob("arrays.npz"))}
-        if again["losses"] != first["losses"][3:]:
-            raise AssertionError(f"resume: losses {again['losses']} != "
-                                 f"{first['losses'][3:]}")
+        with cut_depth(tmod, 2):
+            kw = dict(ckpt_dir=tmp, ckpt_every=3, **qat)
+            t0 = time.perf_counter()
+            first = tmod.train(arch, False, 6, batch, seq, resume=False, **kw)
+            (Path(tmp) / "LATEST").write_text("step_00000003")
+            again = tmod.train(arch, False, 6, batch, seq, resume=True, **kw)
+            res["resume"] = {"layers": 2, "first": first["losses"],
+                             "resumed": again["losses"],
+                             "wall_s": time.perf_counter() - t0,
+                             "ckpt_bytes": sum(f.stat().st_size for f in
+                                               Path(tmp).rglob("arrays.npz"))}
+            if again["losses"] != first["losses"][3:]:
+                raise AssertionError(f"resume: losses {again['losses']} != "
+                                     f"{first['losses'][3:]}")
     finally:
-        tmod.get_config = full
         shutil.rmtree(tmp, ignore_errors=True)
     res["cli_smoke"] = run_train_cli_smoke()
     return res
@@ -2965,6 +3083,219 @@ def obs_overhead(qp, cfg, ecfg, kw, turns: int = 2, steps: int = 8) -> dict:
             "median_serve_ms": {n: statistics.median(v)
                                 for n, v in serve_ms.items()},
             "drain_ms": 1e3 * full.drain_s / max(full.n_drains, 1)}
+
+
+# phase 3j: the recurrent families at full width (arch, Poisson
+# requests, layers: None for full depth). zamba2_7b is cut to 15 of its
+# 81 layers (two groups of 6 and a 3-layer remainder, 2 of the 13 shared
+# block applications): at full depth its part of the phase took 290 s
+# (a decode step 245 ms on the host, 11,740 launches), which the script's
+# time limit cannot hold beside phases 2-3i. Prompts of 8-32 tokens (3b:
+# 16-64): the prefill is one host-paced step a token. Every serve of the
+# phase holds twice as many requests as the engine's 4 slots, so half are
+# admitted into a slot a finished request used (alone == batched then
+# shows a recurrent state that leaks across admissions)
+RECURRENT_PATHS = (("mamba2_130m", 8, None), ("zamba2_7b", 8, 15))
+RECURRENT_CONTRACT_REQUESTS = 8
+RECURRENT_PROMPTS = (8, 32)
+
+
+def ssm_state_bytes(cfg) -> dict:
+    """Bytes of one slot's recurrent state: the fp32 SSM state h and the
+    conv tails (the param dtype), every Mamba2 layer."""
+    from repro_torch.models.decode import init_decode_state
+
+    st = init_decode_state(cfg, 1, 1, device="cuda")
+    parts = [p for p in (st.ssm, st.rest) if p is not None]
+    return {"h": sum(p.h.numel() * p.h.element_size() for p in parts),
+            "conv": sum(p.conv.numel() * p.conv.element_size() for p in parts)}
+
+
+def step_profile(engine, steps: int = 4, n_top: int = 8) -> dict:
+    """Where one decode step at batch ``max_slots`` goes: ``steps`` steps
+    on the host clock (after one warm step), then ``steps`` more under
+    torch.profiler (device activity only): every CUDA kernel counted and
+    summed, on a fresh state (pages mapped for every slot)."""
+    from torch.autograd import DeviceType
+
+    from repro_torch.models.decode import decode_step
+
+    ec = engine.ecfg
+    b = ec.max_slots
+    tok = torch.zeros((b, 1), dtype=torch.int32, device=engine.device)
+    st = [engine._fresh_state()]
+    if st[0].paged is not None:
+        npp = ec.max_len // ec.page_size
+        st[0].paged.table.copy_(torch.arange(b * npp, dtype=torch.int32)
+                                .reshape(b, npp))
+        st[0].paged.write_limit.fill_(ec.max_len)
+
+    def run(n):
+        for _ in range(n):
+            _, st[0] = decode_step(engine.params, st[0], tok, engine.cfg,
+                                   ctx=engine._ctx)
+
+    with torch.no_grad():
+        run(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(steps)
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0) / steps
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            run(steps)
+            torch.cuda.synchronize()
+    per = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            n, ns = per.get(e.name(), (0, 0))
+            per[e.name()] = (n + 1, ns + e.duration_ns())
+    kernels = sum(n for n, _ in per.values())
+    device_ms = sum(ns for _, ns in per.values()) / 1e6 / steps
+    top = sorted(per.items(), key=lambda kv: kv[1][1], reverse=True)[:n_top]
+    return {"batch": b, "steps": steps, "host_ms_per_step": host_ms,
+            "device_ms_per_step": device_ms,
+            "device_busy_share": device_ms / host_ms,
+            "launches_per_step": kernels / steps,
+            "top_kernels": [{"name": name[:90], "count_per_step": n / steps,
+                             "device_ms_per_step": ns / 1e6 / steps}
+                            for name, (n, ns) in top]}
+
+
+def recurrent_path() -> dict:
+    """Phase 3j: the ssm and hybrid families end to end at full width
+    (``RECURRENT_PATHS``), each through ``main_path``: seeded init -> FIT
+    report (peak within 1.3 x params + 2 GB) -> W8/W4 allocation ->
+    packed QTensors -> serving of Poisson requests, alone == batched;
+    mamba2_130m from the dense per-slot state (no KV to page), zamba2_7b
+    paged at its FIT KV widths. Then, on zamba2_7b's params and 8 short
+    requests arrived at once on 4 slots (the last 4 admitted into used
+    slots): 16-bit pages == the dense cache, token for
+    token, and tp=2 (``TPMesh([cuda:0] * 2)``: the Mamba2 and shared-block
+    projections column/row-sharded, pools kv-sharded, SSM states on the
+    lead device) == the tp=1 engine at the FIT KV widths, with exact
+    ``qmm_groups`` launch counts.
+    Last (a profiler session slows later host launches), each family's
+    decode step on the host clock and under the profiler: launches and
+    device milliseconds a step. Counters are reset just before each path
+    and read just after it."""
+    from repro_torch.launch.mesh import TPMesh
+    from repro_torch.qtensor import is_qtensor
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.loadgen import poisson_requests
+    from repro_torch.serve.quantized import qw_path
+    from repro_torch.utils.pytree import named_leaves
+
+    card = torch.device("cuda", 0)
+    res = {"paths": {}, "launches": {}, "seconds": {}}
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        res["seconds"][name] = now - clock[0]
+        clock[0] = now
+
+    kept = {}
+    for arch, n_requests, layers in RECURRENT_PATHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        mp, keep = main_path(arch, n_requests, False, layers,
+                             RECURRENT_PROMPTS)
+        if n_requests <= keep["ecfg"].max_slots:
+            raise AssertionError(f"3j: {n_requests} {arch} requests on "
+                                 f"{keep['ecfg'].max_slots} slots reuse no slot")
+        mp["state_bytes_per_slot"] = ssm_state_bytes(keep["cfg"])
+        res["paths"][arch] = mp
+        res["launches"][arch] = mp["launches"]
+        keep.pop("report")
+        kept[arch] = keep
+        lap(f"{arch} main path")
+
+    k = kept["zamba2_7b"]
+    # the contracts below serve 8 short requests, all arrived at once, on
+    # the engine's 4 slots and the step clock: the last 4 are admitted
+    # into used slots
+    ecfg = dataclasses.replace(k["ecfg"], clock="steps")
+    n_reqs = RECURRENT_CONTRACT_REQUESTS
+    if n_reqs <= ecfg.max_slots:
+        raise AssertionError(f"3j: {n_reqs} requests on {ecfg.max_slots} "
+                             "slots reuse no slot")
+
+    def reqs():
+        rs = poisson_requests(k["cfg"], n_reqs, rate=1.0, prompt_len=(8, 16),
+                              gen_len=8, seed=3)
+        for r in rs:
+            r.arrival_time = 0.0
+        return rs
+
+    def serve(tag, ecfg, **kw):
+        engine = Engine(k["qparams"], k["cfg"], ecfg, **kw)
+        fin, m = engine.run(reqs())
+        torch.cuda.synchronize()
+        lap(tag)
+        return engine, [r.output_tokens.tolist() for r in fin], m
+
+    # 16-bit pages hold the dense cache's values: the same streams
+    _, paged16, _ = serve("zamba2_7b paged 16-bit", ecfg)
+    _, dense, _ = serve("zamba2_7b dense cache",
+                        dataclasses.replace(ecfg, kv_cache="dense"))
+    if paged16 != dense:
+        raise AssertionError(f"zamba2_7b: 16-bit pages != dense cache: "
+                             f"{paged16} vs {dense}")
+    res["paged_equals_dense"] = {"requests": len(dense),
+                                 "tokens": sum(map(len, dense))}
+
+    # tp=2 on one card == the tp=1 engine, at the FIT KV widths
+    kw = {"kv_bits": k["kv_bits"], "kv_ranges": k["ranges"]}
+    _, tp1, _ = serve("zamba2_7b tp=1", ecfg, **kw)
+    reset_counts()
+    tp2, got, m = serve("zamba2_7b tp=2", dataclasses.replace(
+        ecfg, mesh=TPMesh([card] * 2)), **kw)
+    launches = res["launches"]["zamba2_7b tp=2"] = read_counts()
+    if got != tp1:
+        raise AssertionError(f"zamba2_7b tp=2 streams differ from tp=1's: "
+                             f"{got} vs {tp1}")
+    plan = tp2._shard_plan
+    # packed row blocks, each counted once an application: the shared
+    # block's run once a group
+    cfg = k["cfg"]
+    qrow = sum((cfg.num_layers // cfg.attn_period if name.startswith("shared/")
+                else 1)
+               for name, leaf in named_leaves(k["qparams"])
+               if plan.get(qw_path(name)) == "row" and is_qtensor(leaf))
+    fwd = m.prefill_tokens + m.decode_steps
+    if (not qrow or tp2._kv_shards != 2
+            or launches["qmm_groups"] != qrow * 2 * fwd
+            or launches["qmm_groups_fold"] != qrow * fwd):
+        raise AssertionError(
+            f"zamba2_7b tp=2: {launches['qmm_groups']} qmm_groups / "
+            f"{launches['qmm_groups_fold']} fold launches for {qrow} packed "
+            f"row-block applications x 2 shards x {fwd} forward calls; kv "
+            f"shards {tp2._kv_shards}")
+    for name in PATH_KERNELS["hybrid_tp"]:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 "zamba2_7b tp=2 path")
+    s = m.summary()
+    res["tp2"] = {"blocks": {mode: sum(v == mode for v in plan.values())
+                             for mode in ("col", "row")},
+                  "packed_row_applications": qrow, "forward_calls": fwd,
+                  "kv_shards": tp2._kv_shards,
+                  "decode_tokens_per_s": s["decode_tokens_per_s"],
+                  "decode_ms_per_step": 1e3 * m.decode_s / max(m.decode_steps, 1),
+                  "ttft_p50": s["ttft_p50"]}
+    del tp2
+
+    # where a recurrent decode step goes (profiled last)
+    for arch, keep in kept.items():
+        engine = Engine(keep["qparams"], keep["cfg"], keep["ecfg"],
+                        kv_bits=keep["kv_bits"], kv_ranges=keep["ranges"])
+        res["paths"][arch]["step"] = step_profile(engine)
+        del engine
+        lap(f"{arch} step profile")
+    del kept
+    return res
 
 
 HESSIAN_LAYERS = 4      # depth of phase 3h's model (full width)

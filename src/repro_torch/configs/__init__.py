@@ -2,8 +2,8 @@
 
 ``ModelConfig`` is the same frozen dataclass as the reference's;
 ``param_dtype`` returns a torch dtype. ``ARCH_IDS`` registers the
-architectures the port serves so far (the dense and MoE families), in
-the reference's order; the ssm, hybrid, audio and vlm families are not
+architectures the port serves so far (the dense, MoE, ssm and hybrid
+families), in the reference's order; the audio and vlm families are not
 ported yet. ``SHAPES`` maps the assigned input-shape ids to (seq_len,
 global_batch, kind).
 """
@@ -86,6 +86,8 @@ class ModelConfig:
 
 
 ARCH_IDS = [
+    "mamba2_130m",
+    "zamba2_7b",
     "olmoe_1b_7b",
     "deepseek_moe_16b",
     "minitron_4b",

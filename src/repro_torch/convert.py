@@ -6,9 +6,11 @@ caller has turned every leaf into a numpy array (nested dicts keyed
 tree: the same keys and shapes, torch tensors on ``device``. Nothing is
 transposed, and nothing of the reference is imported here.
 
-``dtype`` recasts only the leaves the reference stores in the model
-dtype: the ones it always keeps in fp32 (``FP32_LEAVES``, the MoE
-router) stay fp32, as the port's own ``init_params`` makes them.
+The hybrid's nested ``groups/<g>/<i>`` and ``shared`` subtrees come
+across as any other dict. ``dtype`` recasts only the leaves the
+reference stores in the model dtype: the ones it always keeps in fp32
+(``FP32_LEAVES``: the MoE router, the Mamba2 conv and SSM vectors) stay
+fp32, as the port's own ``init_params`` makes them.
 
 ``bit_config_from_reference`` / ``draft_plan_from_reference`` carry a
 reference ``BitConfig`` / ``DraftPlan`` across by their fields (so a
@@ -25,8 +27,10 @@ import torch
 
 from repro_torch._device import DeviceLike, resolve_device
 
-# leaf names the reference initializes in fp32 whatever the model dtype
-FP32_LEAVES = frozenset({"router"})
+# leaf names the reference initializes in fp32 whatever the model dtype:
+# the MoE router and the Mamba2 conv and SSM vectors
+FP32_LEAVES = frozenset({"router", "conv_w", "conv_b", "A_log", "D",
+                         "dt_bias", "norm_w"})
 
 
 def _leaf(a: Any, device: torch.device, dtype: Optional[torch.dtype]):

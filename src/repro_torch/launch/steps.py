@@ -62,14 +62,23 @@ def uniform_levels(cfg: ModelConfig, weight_bits: int,
                    act_bits: Optional[int], device: DeviceLike = None
                    ) -> QATLevels:
     """Uniform QAT levels over the standard per-layer blocks: every
-    attention and MLP (or expert) weight at ``weight_bits``; the attention
-    output and the MLP hidden activation at ``act_bits`` (None: none)."""
+    attention and MLP (or expert, or Mamba2 projection but ``wdt``) weight
+    at ``weight_bits``; the attention output and the MLP hidden
+    activation (the Mamba2 conv and SSD outputs) at ``act_bits`` (None:
+    none). The hybrid gets empty tables: its blocks run unquantized under
+    QAT, as in the reference."""
     require_ported_family(cfg)
     dev = resolve_device(device)
     if cfg.family == "moe":
         wkeys = ["attn/wq", "attn/wk", "attn/wv", "attn/wo",
                  "moe/w_up", "moe/w_gate", "moe/w_down"]
         akeys = ["attn/attn_out", "moe/moe_h"]
+    elif cfg.family == "ssm":
+        wkeys = ["mixer/wz", "mixer/wx", "mixer/wB", "mixer/wC",
+                 "mixer/out_proj"]
+        akeys = ["mixer/conv_out", "mixer/ssd_out"]
+    elif cfg.family == "hybrid":
+        wkeys, akeys = [], []
     else:
         wkeys = ["attn/wq", "attn/wk", "attn/wv", "attn/wo",
                  "mlp/w_up", "mlp/w_down"] + (

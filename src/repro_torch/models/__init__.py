@@ -1,4 +1,4 @@
-"""Port of ``repro.models``: the dense and MoE families."""
+"""Port of ``repro.models``: the dense, MoE, ssm (Mamba2) and hybrid (Zamba2) families."""
 from repro_torch.models.transformer import (  # noqa: F401
     init_params, forward, loss_fn, vocab_padded, QATLevels)
 from repro_torch.models.decode import (  # noqa: F401

@@ -69,6 +69,16 @@ class Context:
         finally:
             self._scope.pop()
 
+    @contextmanager
+    def restored(self, stack: List[str]):
+        """Run under the scope stack ``stack``: a block rematerialized in
+        the backward recomputes under the scopes its forward saw."""
+        outer, self._scope = self._scope, list(stack)
+        try:
+            yield self
+        finally:
+            self._scope = outer
+
     def path(self, name: str) -> str:
         return "/".join(self._scope + [name])
 

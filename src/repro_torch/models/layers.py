@@ -26,6 +26,28 @@ def init_norm(d: int, dtype, device) -> torch.Tensor:
     return torch.ones((d,), dtype=dtype, device=device)
 
 
+class _GradBarrier(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.in_dtype = x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.in_dtype)
+
+
+def grad_barrier(x: torch.Tensor) -> torch.Tensor:
+    """Identity whose cotangent is cast back to x's dtype: the SSD's fp32
+    accumulations must not hand fp32 cotangents to the projections'
+    backward in a bf16 model (the standard bf16-gradient recipe). Where
+    no gradient flows (serving) it is x itself: the Function's dispatch
+    would cost a host call for nothing."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _GradBarrier.apply(x)
+
+
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     # the mean square is taken in fp32, but only the per-row rsqrt is cast
     # back to x's dtype: x itself never widens

@@ -1,20 +1,39 @@
-"""Decoder-only LM, dense and MoE families (port of
-``repro.models.transformer``).
+"""Decoder-only LM (port of ``repro.models.transformer``):
 
-Always the unrolled layout: one parameter subtree per layer under
-``layers/<i>``, the block paths FIT, the bit allocator and the QTensor
-materializer key on. A MoE block holds a ``moe`` subtree in place of
-``mlp``. The ssm, hybrid, audio and vlm families are not ported yet.
+  dense           : [attn + MLP] x L
+  moe             : [attn + MoE-FFN] x L
+  ssm             : [Mamba2 mixer] x L
+  hybrid (Zamba2) : groups of [the ONE shared attn/MLP block + period x
+                    Mamba2], then the remainder's Mamba2 layers
+
+Always the unrolled layout, the block paths FIT, the bit allocator and
+the QTensor materializer key on: ``layers/<i>`` (dense, MoE, ssm); for
+the hybrid ``shared`` (stored once), ``groups/<g>/<i>`` and ``rest/<i>``.
+The forward scopes the shared block's g-th application ``shared/<g>``
+(its activation taps are per application; its weight blocks are the one
+``shared/...`` leaf). A MoE block holds a ``moe`` subtree in place of
+``mlp``. The audio and vlm families are not ported yet.
+
+Where a gradient is taken (the FIT report's per-sample and tap
+backwards, QAT), the ssm and hybrid blocks are rematerialized
+(``cfg.remat``, the reference's checkpointed blocks): a block keeps its
+input and recomputes its activations in the backward, so the report's
+memory does not grow with the depth times the batch of its tap backward
+(the SSD's (Q, Q, H) masks are ~7 MB a sample and a layer at Q = 128).
+The numbers are those of the plain forward.
 
 QAT (``qat=QATLevels``) builds one ``QATContext`` per layer from the
 per-layer levels tables, as the reference's stacked-layer forward does,
-so the tables key on within-layer paths ("attn/wq").
+so the tables key on within-layer paths ("attn/wq", "mixer/wz"). The
+hybrid's blocks run unquantized under QAT, as the reference's stacked
+hybrid forward runs them; the embedding and head take the top tables.
 """
 from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch._device import DeviceLike, generator, resolve_device
 from repro_torch.configs import ModelConfig
@@ -22,9 +41,10 @@ from repro_torch.models.attention import (
     attention_apply, attention_decode, attention_decode_paged, init_attention)
 from repro_torch.models.context import Context, QATContext
 from repro_torch.models.layers import init_mlp, init_norm, mlp_apply, rmsnorm
+from repro_torch.models.mamba2 import init_mamba2, mamba2_apply, mamba2_decode
 from repro_torch.models.moe import init_moe, moe_apply
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def vocab_padded(cfg: ModelConfig, multiple: int = 16) -> int:
@@ -49,6 +69,11 @@ def _init_block(gen, cfg: ModelConfig, dtype, device) -> Dict:
     return p
 
 
+def _init_mamba_block(gen, cfg: ModelConfig, dtype, device) -> Dict:
+    return {"ln": init_norm(cfg.d_model, dtype, device),
+            "mixer": init_mamba2(gen, cfg, dtype)}
+
+
 def init_params(cfg: ModelConfig, seed: int = 0,
                 device: DeviceLike = None) -> Dict:
     """Seeded random parameters on ``device`` (default: the GPU). The
@@ -67,8 +92,22 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     params: Dict = {"final_norm": init_norm(cfg.d_model, dtype, dev),
                     "embed": emb((v, cfg.d_model)),
                     "head": emb((cfg.d_model, v))}
-    params["layers"] = {str(i): _init_block(gen, cfg, dtype, dev)
-                        for i in range(cfg.num_layers)}
+    if cfg.family in ("dense", "moe"):
+        params["layers"] = {str(i): _init_block(gen, cfg, dtype, dev)
+                            for i in range(cfg.num_layers)}
+    elif cfg.family == "ssm":
+        params["layers"] = {str(i): _init_mamba_block(gen, cfg, dtype, dev)
+                            for i in range(cfg.num_layers)}
+    else:
+        n_groups, rest = divmod(cfg.num_layers, cfg.attn_period)
+        params["shared"] = _init_block(gen, cfg, dtype, dev)
+        params["groups"] = {
+            str(g): {str(i): _init_mamba_block(gen, cfg, dtype, dev)
+                     for i in range(cfg.attn_period)}
+            for g in range(n_groups)}
+        if rest:
+            params["rest"] = {str(i): _init_mamba_block(gen, cfg, dtype, dev)
+                              for i in range(rest)}
     return params
 
 
@@ -88,6 +127,42 @@ def _attn_mlp_block(x, bp, cfg: ModelConfig, ctx, positions=None):
             h = rmsnorm(x, bp["ln2"], cfg.norm_eps)
             x = x + mlp_apply(h, bp["mlp"], cfg.act, ctx)
     return x, aux
+
+
+def _mamba_block(x, bp, cfg: ModelConfig, ctx):
+    with ctx.scope("mixer"):
+        h = rmsnorm(x, bp["ln"], cfg.norm_eps)
+        x = x + mamba2_apply(h, bp["mixer"], cfg, ctx)
+    return x
+
+
+def _mamba_block_decode(x, bp, cfg: ModelConfig, ctx, state):
+    """One-token Mamba2 block; ``state`` (a ``MambaState``) is advanced in
+    place."""
+    with ctx.scope("mixer"):
+        h = rmsnorm(x, bp["ln"], cfg.norm_eps)
+        y, state = mamba2_decode(h, bp["mixer"], cfg, ctx, state)
+        x = x + y
+    return x, state
+
+
+def _block(fn, x, bp, cfg: ModelConfig, ctx, scope: Optional[str]):
+    """``fn(x, bp, cfg, ctx)`` under ``ctx.scope(scope)`` (None: no
+    scope), rematerialized in the backward when a gradient is being
+    taken and ``cfg.remat`` is set; the recompute runs under the scope
+    stack the forward saw."""
+    stack = list(ctx._scope)
+
+    def run(h):
+        with ctx.restored(stack):
+            if scope is None:
+                return fn(h, bp, cfg, ctx)
+            with ctx.scope(scope):
+                return fn(h, bp, cfg, ctx)
+
+    if cfg.remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)
+    return run(x)
 
 
 def column_rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
@@ -170,9 +245,10 @@ def forward(params, inputs: Dict[str, torch.Tensor], cfg: ModelConfig,
             ctx: Optional[Context] = None, qat: Optional[QATLevels] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(logits (B, S, V_padded), MoE aux loss summed over layers) of the
-    unrolled forward. ``ctx`` runs every layer under ``layers/<i>``
-    scopes; otherwise ``qat`` gives each layer its own ``QATContext``
-    (no ``qat``: the plain forward)."""
+    unrolled forward. ``ctx`` runs every layer under its block scope
+    (``layers/<i>``; the hybrid's ``shared/<g>``, ``groups/<g>/<i>``,
+    ``rest/<i>``); otherwise ``qat`` gives each layer its own
+    ``QATContext`` (no ``qat``: the plain forward)."""
     require_ported_family(cfg)
     layer_ctx = None
     if ctx is None and qat is not None:
@@ -183,6 +259,28 @@ def forward(params, inputs: Dict[str, torch.Tensor], cfg: ModelConfig,
     ctx = ctx or Context()
     x = embed_inputs(params, inputs, cfg, ctx)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "hybrid":
+        # under QAT the hybrid's blocks run unquantized (layer_ctx set)
+        bctx = Context() if layer_ctx is not None else ctx
+        n_groups, rest = divmod(cfg.num_layers, cfg.attn_period)
+        for g in range(n_groups):
+            x, da = _block(_attn_mlp_block, x, params["shared"], cfg, bctx,
+                           f"shared/{g}")
+            aux = aux + da
+            for i in range(cfg.attn_period):
+                x = _block(_mamba_block, x, params["groups"][str(g)][str(i)],
+                           cfg, bctx, f"groups/{g}/{i}")
+        for i in range(rest):
+            x = _block(_mamba_block, x, params["rest"][str(i)], cfg, bctx,
+                       f"rest/{i}")
+        return logits_from_hidden(params, x, cfg, ctx), aux
+    if cfg.family == "ssm":
+        for i in range(cfg.num_layers):
+            bp = params["layers"][str(i)]
+            x = (_block(_mamba_block, x, bp, cfg, layer_ctx(i), None)
+                 if layer_ctx is not None else
+                 _block(_mamba_block, x, bp, cfg, ctx, f"layers/{i}"))
+        return logits_from_hidden(params, x, cfg, ctx), aux
     for i in range(cfg.num_layers):
         bp = params["layers"][str(i)]
         if layer_ctx is not None:

@@ -27,11 +27,22 @@ stream equals the reference engine's), self-speculative decoding
 paged KV, prefix sharing and copy-on-write, chunked prefill interleaved
 with decode, page-table growth, eviction and backfill, admission
 deferral when the page pool is full; packed QTensor and int8-backed
-(path-keyed ``scales``) weights; the dense and MoE families (MoE expert
-stacks through ``grouped_qmm``, or the per-expert ``qmm`` loop or the fp
-einsum, by ``moe_dispatch``). On the MoE path the row independence
-above stops at the experts' capacity, which couples a token to its
-batch-mates as it does in the reference.
+(path-keyed ``scales``) weights; the dense, MoE, ssm and hybrid families
+(MoE expert stacks through ``grouped_qmm``, or the per-expert ``qmm``
+loop or the fp einsum, by ``moe_dispatch``). On the MoE path the row
+independence above stops at the experts' capacity, which couples a
+token to its batch-mates as it does in the reference.
+
+The recurrent families (ssm, hybrid) carry an SSM state a slot beside
+(hybrid) or instead of (ssm) the KV cache: admission overwrites the
+slot's whole state with the prefilled one, on the dense and the paged
+route; inactive slots ride along with frozen positions (their state
+advances harmlessly until the next admission overwrites it); under a
+mesh the states stay on the lead device. The ssm family holds no KV to
+page; the hybrid serves without prefix sharing (a shared prefix would
+also need the SSM state at the split point, which is not cached); and
+neither takes speculative decoding (a recurrent state cannot rewind
+rejected drafts), as in the reference.
 
 Sampled bursts specialize the sampler to what the active requests need
 (``_mode_for``: ``greedy``, ``nofilter`` or ``full``); a row samples the
@@ -72,8 +83,8 @@ own; dispatch walls with CUDA-event device time (``perf``); and a FIT
 drift monitor's cadenced probe after the bursts (``attach_drift``).
 
 Not yet ported (raise ``NotImplementedError``): speculative decoding
-under a mesh (refused by the reference too) and the ssm, hybrid, audio
-and vlm families.
+under a mesh (refused by the reference too) and the audio and vlm
+families.
 """
 from __future__ import annotations
 
@@ -99,7 +110,7 @@ from repro_torch.models.context import (
     Context, DequantContext, ShardedDequantContext)
 from repro_torch.models.decode import (
     DecodeState, decode_step, init_decode_state, init_paged_decode_state,
-    prefill_into, state_insert_slot)
+    insert_ssm_slot, prefill_into, state_insert_slot)
 from repro_torch.models.transformer import require_ported_family
 from repro_torch.obs import DeviceCounters, ObsConfig, Tracer, init_counters
 from repro_torch.obs import runtime as obs_rt
@@ -165,6 +176,14 @@ def _check_supported(cfg: ModelConfig, ecfg: EngineConfig) -> None:
     require_ported_family(cfg)
     if ecfg.kv_cache not in ("dense", "paged"):
         raise ValueError(f"kv_cache must be dense|paged, got {ecfg.kv_cache!r}")
+    if ecfg.kv_cache == "paged" and cfg.family == "ssm":
+        raise ValueError("ssm family holds no KV cache to page")
+    if (ecfg.spec is not None and ecfg.spec.enabled
+            and cfg.family in ("ssm", "hybrid")):
+        raise ValueError(
+            "speculative decoding needs a rollback-able cache: the "
+            f"{cfg.family} family's recurrent state cannot rewind rejected "
+            "draft tokens")
     if ecfg.clock not in ("steps", "wall"):
         raise ValueError(f"clock must be steps|wall, got {ecfg.clock!r}")
 
@@ -235,6 +254,13 @@ class Engine:
                 cfg, ecfg.max_len, ecfg.max_slots, page_size=ecfg.page_size,
                 num_pages=ecfg.kv_pages, kv_bits=kv_bits)
             self._n_kv_layers = kv_layer_count(cfg)
+            if ecfg.prefix_sharing and cfg.family == "hybrid":
+                # a shared prefix would also need the SSM state at the
+                # split point, which is not cached: attention pages stay
+                # paged, prefix reuse is off
+                log.info("hybrid family: prefix sharing disabled "
+                         "(SSM state at the split is not cached)")
+        self._share = ecfg.prefix_sharing and cfg.family != "hybrid"
         # ---- observability (all off by default; see repro_torch.obs) ----
         obs = ecfg.obs
         self._obs: Optional[ObsConfig] = obs
@@ -461,7 +487,7 @@ class Engine:
         if self._paged:
             self._alloc = BlockAllocator(self._pcfg.num_pages,
                                          self._pcfg.page_size,
-                                         prefix_sharing=ecfg.prefix_sharing)
+                                         prefix_sharing=self._share)
             self._rows: List[List[int]] = [[] for _ in range(S)]
             self._pos_h = np.zeros(S, np.int64)
             self._limit_h = np.zeros(S, np.int64)
@@ -678,6 +704,7 @@ class Engine:
                 scatter_span(ps.layers[str(i)], drow, pstate.kv.k[i, 0],
                              pstate.kv.v[i, 0], shared_len, plen)
             st.pos[slot] = plen
+            insert_ssm_slot(cfg, st, pstate, slot)
             ps.table[slot] = drow
             ps.write_limit[slot] = limit
             self._alloc.register_prompt(np.asarray(req.prompt), row, plen)

@@ -12,7 +12,9 @@
     ``DequantContext`` runs them through ``int8_matmul``. At W8 with
     default granularity the two formats dequantize identically.
 
-Both need the unrolled layout (``layers/<i>/...``). ``shard_params``
+Both need the unrolled layout (``layers/<i>/...``; the hybrid's
+``shared/...``, ``groups/<g>/<i>/...`` and ``rest/<i>/...``). The Mamba2
+conv weights and SSM vectors are not matmul leaves and stay fp. ``shard_params``
 splits either tree across a ``launch.mesh.TPMesh`` for tensor-parallel
 serving (``ShardedDequantContext``).
 """
@@ -73,11 +75,12 @@ def _block_bits(bit_cfg: BitConfig, name: str, leaf,
 
 
 def _require_unrolled(params) -> None:
-    layers = params.get("layers")
+    layers = params.get("layers") or params.get("groups")
     if not (isinstance(layers, dict) and "0" in layers):
         raise ValueError("quantized serving needs the unrolled parameter "
-                         "layout (layers/<i>/...): storage is keyed by "
-                         "block path, which a scan-stacked tree cannot give")
+                         "layout (layers/<i>/... or the hybrid's "
+                         "groups/<g>/<i>/...): storage is keyed by block "
+                         "path, which a scan-stacked tree cannot give")
 
 
 def quantize_params(params, bits: Union[int, BitConfig],

@@ -148,7 +148,8 @@ def _config_head_dims():
     dims = {}
     for arch in tconfigs.ARCH_IDS:
         for cfg in (tconfigs.get_config(arch), tconfigs.smoke_config(arch)):
-            dims[f"port {cfg.name}"] = cfg.head_dim
+            if cfg.head_dim:            # the ssm family has no attention
+                dims[f"port {cfg.name}"] = cfg.head_dim
     for arch in jconfigs.ARCH_IDS:
         for cfg in (jconfigs.get_config(arch), jconfigs.smoke_config(arch)):
             if cfg.head_dim:

@@ -145,8 +145,7 @@ def test_train_cli_help_loads_neither_jax_nor_repro():
 # (ROADMAP § A), by package
 WAITING = {"analysis": {"Finding", "RULES", "Report", "run_all"}}      # A8
 # the reference's architectures whose families the port does not run yet (A3)
-WAITING_ARCHS = {"mamba2_130m": "ssm", "zamba2_7b": "hybrid",
-                 "musicgen_large": "audio", "phi3_vision_4_2b": "vlm"}
+WAITING_ARCHS = {"musicgen_large": "audio", "phi3_vision_4_2b": "vlm"}
 
 
 def _public(mod, root: str) -> set:

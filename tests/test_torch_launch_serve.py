@@ -1,7 +1,9 @@
 """The port's serving CLI (``repro_torch.launch.serve``) against
 ``repro.launch.serve`` on the CPU at smoke size: PTQ pinning, closed-loop
 ``generated`` equal to the reference's on the int8-backed paged route
-with a shared prefix, the speculative and sampling flags at smoke size,
+with a shared prefix, the recurrent families (zamba2 paged, mamba2 on
+its dense state, paged mamba2 refused), the speculative and sampling
+flags at smoke size,
 the observability flags (their sections with the reference's keys), the
 GPU default, and ``main()``'s JSON dump."""
 import dataclasses
@@ -116,6 +118,38 @@ def test_serve_closed_loop_matches_reference(monkeypatch):
         assert got["metrics"][key] == want["metrics"][key], key
     assert got["metrics"]["kv_shared_tokens"] > 0
     assert got["metrics"]["kv_cow_copies"] > 0
+
+
+RECURRENT_KW = dict(batch=3, prompt_len=12, gen_len=6, weight_bits=None,
+                    int8_compute=True)
+
+
+@pytest.mark.parametrize("arch, kw", [
+    ("zamba2_7b", dict(packed=True, paged=True, kv_bits=8)),
+    ("mamba2_130m", dict(int8=True))])
+@pytest.mark.usefixtures("one_thread")
+def test_serve_recurrent_families_match_reference(arch, kw, monkeypatch):
+    """The recurrent families through the CLI: zamba2 packed on paged
+    8-bit KV, mamba2 int8 on its dense per-slot state; the same generated
+    matrix as the reference's serve()."""
+    monkeypatch.setenv("REPRO_KERNELS", "ref")
+    tp = _ref_params(arch)
+    monkeypatch.setattr(tserve, "init_params", lambda cfg, seed=0, device=None: tp)
+    want = jserve.serve(arch, True, **RECURRENT_KW, **kw)
+    got = tserve.serve(arch, True, **RECURRENT_KW, **kw, device="cpu")
+    assert got["generated"].shape == (3, 6)
+    np.testing.assert_array_equal(got["generated"], np.asarray(want["generated"]))
+    assert got["metrics"]["n_finished"] == want["metrics"]["n_finished"] == 3
+
+
+def test_serve_refuses_paged_ssm_like_reference():
+    """--paged on the ssm family: refused, as by the reference."""
+    with pytest.raises(ValueError) as want:
+        jserve.serve("mamba2_130m", True, **RECURRENT_KW, paged=True)
+    with pytest.raises(ValueError) as got:
+        tserve.serve("mamba2_130m", True, **RECURRENT_KW, paged=True,
+                     device="cpu")
+    assert str(got.value) == str(want.value)
 
 
 def test_serve_open_loop_moe_packed():
