@@ -12,9 +12,11 @@ Phases, in order; any failure exits non-zero:
      plain PyTorch version on the card at
      the main paths' shapes, and time kernel, plain version and the one
      PyTorch library call computing the same function (CUDA events);
-     check that one serving call of qmm, int8_matmul and paged_attention
-     is one launch with no allocation but its output (and the paged
-     partials where a context spans CTAs), and that paged_attention's
+     check that one serving call of qmm, int8_matmul and paged_attention,
+     and one ef_sqnorm call at each of its rows, is one launch with no
+     allocation but its output (and the partials where a context or a row
+     spans CTAs), that ef_sqnorm gives the same bits twice and a (4, N)
+     call the bits of four (1, N) calls, and that paged_attention's
      slots alone and its kv-head shards equal the batched, full call;
      that each flash row runs the kernel its head dim and dtype plan
      (bf16/fp16 past D = 256: the split-head-dim kernel up to 512, one
@@ -135,10 +137,13 @@ class Timer:
     repetition (the serving loop finds weights and pages cold). A 1 ms
     device spin before the start event keeps the card busy while the host
     enqueues the call, so the events bracket device time only, not the
-    Python wrapper's launch latency."""
+    Python wrapper's launch latency. The flush writes 128 MB, so the call
+    finds up to 50 MB of dirty lines in L2 that its own reads evict to
+    HBM; ``read_flush`` sums the buffer instead, leaving clean lines."""
 
-    def __init__(self, reps: int = 10):
+    def __init__(self, reps: int = 10, read_flush: bool = False):
         self.reps = reps
+        self.read_flush = read_flush
         self.flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
 
     def __call__(self, fn) -> float:
@@ -146,7 +151,10 @@ class Timer:
         torch.cuda.synchronize()
         ts = []
         for _ in range(self.reps):
-            self.flush.zero_()
+            if self.read_flush:
+                self.flush.sum(dtype=torch.int64)
+            else:
+                self.flush.zero_()
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             torch.cuda._sleep(2_000_000)
@@ -173,19 +181,44 @@ def bound_ms(nbytes: float, ops: float, peak_ops: float):
 # (3584 x 7168), a Mamba2 conv weight in fp32 (4 x 7424), a norm's scale
 EF_PATH_ROWS = (786_432_000, 525_336_576, 25_690_112, 2048)
 EF_PATH_ROWS_F32 = (29_696,)
+# an activation tap as ef_trace_activations reduces it on phase 3b's
+# internlm2_1_8b path: the k / v site of 4 x 128 tokens, (B, S·KV·Dh) bf16
+EF_TAP_ROWS = ((4, 128 * 8 * 128),)
+# the scalar route: N % 8 != 0, so every row but the first starts off a
+# 16-byte boundary
+EF_SCALAR_ROWS = ((4, 1_000_003),)
 
 
 def check_ef_sqnorm(timer, gen, rows):
+    """Every row against the plain version (rtol 1e-4); each call one
+    launch that allocates its output and, where the plan splits the row,
+    the partials, nothing else; two calls the same bits; (4, N) rows equal
+    four (1, N) calls (``torch.equal``). Records each row's plan, and its
+    time after a read flush beside the write flush's (L2's write-back)."""
     from repro_torch.kernels import ef_sqnorm as kmod, ref
+
+    clean = Timer(timer.reps, read_flush=True)
 
     def check(g, label):
         b, n = g.shape
-        got = kmod.ef_sqnorm(g)
+        plan = kmod.launch_plan(n, g.dtype, g.data_ptr() % 16 == 0)
+        first = kmod.ef_sqnorm(g)       # makes the ticket buffer, once
+        got, launched, allocs, nbytes = count_call(
+            lambda: kmod.ef_sqnorm(g), [lambda: kmod.launches])
         want = ref.ef_sqnorm(g)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         if not torch.allclose(got, want, rtol=1e-4, atol=0):
             raise AssertionError(f"ef_sqnorm {label}: {got} vs {want}")
+        if not torch.equal(first, got):
+            raise AssertionError(f"ef_sqnorm {label}: two runs differ, "
+                                 f"{first} != {got}")
+        need = 4 * b + (4 * b * plan.ctas if plan.ctas > 1 else 0)
+        if launched != (1,) or allocs != (1 if plan.ctas == 1 else 2) \
+                or not need <= nbytes < need + 1024:
+            raise AssertionError(f"ef_sqnorm {label}: {launched[0]} launches, "
+                                 f"{allocs} allocations of {nbytes} B for "
+                                 f"plan {tuple(plan)}")
         b_ms, b_by = bound_ms(b * n * g.element_size() + 4 * b, 2 * b * n,
                               FP32_FLOPS)
         dt = "bf16" if g.dtype == torch.bfloat16 else "fp32"
@@ -195,30 +228,39 @@ def check_ef_sqnorm(timer, gen, rows):
                "ms": timer(lambda: kmod.ef_sqnorm(g)),
                "plain_ms": timer(lambda: ref.ef_sqnorm(g)),
                "library_ms": timer(lambda: g.float().square().sum(1)),
-               "bound_ms": b_ms, "bound_by": b_by}
+               "ms_read_flush": clean(lambda: kmod.ef_sqnorm(g)),
+               "library_ms_read_flush": clean(lambda: g.float().square().sum(1)),
+               "bound_ms": b_ms, "bound_by": b_by, "plan": plan._asdict(),
+               "launches_a_call": launched[0], "allocations": allocs,
+               "allocated_bytes": nbytes}
         rows.append(row)
         log(json.dumps(row))
+        if b > 1:
+            # a (1, N) row has the bits of that row of the (B, N) call: the
+            # per-leaf reduction gives the traces the batched one gave
+            alone = torch.cat([kmod.ef_sqnorm(g[i:i + 1]) for i in range(b)])
+            if not torch.equal(alone, got):
+                raise AssertionError(f"ef_sqnorm {label}: {b} (1, N) calls "
+                                     f"{alone} != one (B, N) call {got}")
         return got
 
+    def randn(shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.float32).mul_(1e-3).to(dtype)
+
     for n in (16_777_216, 189_530_112):        # mlp block; embed/head block
-        g = torch.randn((4, n), generator=gen, device="cuda",
-                        dtype=torch.float32).mul_(1e-3).to(torch.bfloat16)
-        got = check(g, f"(4, {n})")
-        # a (1, N) row has the bits of that row of the (4, N) call: the
-        # per-leaf reduction gives the traces the batched one gave
-        alone = torch.cat([kmod.ef_sqnorm(g[i:i + 1]) for i in range(4)])
-        if not torch.equal(alone, got):
-            raise AssertionError(f"ef_sqnorm (4, {n}): four (1, N) calls "
-                                 f"{alone} != one (4, N) call {got}")
-        del g
+        check(randn((4, n)), f"(4, {n})")
     for n in EF_PATH_ROWS:
-        g = torch.randn((1, n), generator=gen, device="cuda",
-                        dtype=torch.float32).mul_(1e-3).to(torch.bfloat16)
-        check(g, f"(1, {n})")
-        del g
+        check(randn((1, n)), f"(1, {n})")
     for n in EF_PATH_ROWS_F32:
-        check(torch.randn((1, n), generator=gen, device="cuda",
-                          dtype=torch.float32).mul_(1e-3), f"(1, {n})")
+        check(randn((1, n), torch.float32), f"(1, {n})")
+    for shape in EF_TAP_ROWS:
+        check(randn(shape), f"{shape} KV tap")
+    for shape in EF_SCALAR_ROWS:
+        g = randn(shape)
+        if kmod.launch_plan(shape[1], g.dtype, True).vec != 1:
+            raise AssertionError(f"ef_sqnorm {shape}: not the scalar route")
+        check(g, f"{shape} scalar")
 
 
 QMM_SHAPES = [("wq/wo", 2048, 2048), ("wk/wv", 2048, 1024),

@@ -24,6 +24,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _lib: Optional[ctypes.CDLL] = None
+_tickets: dict = {}
 # libraries built or loaded by this process (``lib``): a dispatch during
 # which it steps paid that cost (the obs timer's compile split)
 loads = 0
@@ -35,7 +36,7 @@ _F = ctypes.c_float
 # C entry points and their argument types; every pointer and the stream
 # are c_void_p, so ctypes never truncates them to 32 bits
 SIGNATURES = {
-    "ef_sqnorm_launch": [_P, _I, _L, _L, _L, _P, _P, _P],
+    "ef_sqnorm_launch": [_P, _I, _L, _L, _I, _I, _I, _L, _I, _P, _P, _P, _P],
     "qmm_launch": [_P, _P, _P, _P, _P, _P, _I, _L, _L, _L, _L, _L, _I, _I,
                    _I, _I, _P],
     "qmm_groups_fold_launch": [_P, _P, _P, _L, _L, _L, _P],
@@ -137,3 +138,22 @@ def check(err: int, name: str) -> None:
 def stream_ptr(device) -> int:
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def ticket_buffer(device, n: int):
+    """Zeroed int32 counters, at least ``n``, kept per device and stream,
+    for the kernels whose last CTA of a unit (a paged-attention (slot,
+    head), an ``ef_sqnorm`` row) folds the other CTAs' partials: that CTA
+    resets its counter to 0, so the buffer is zeroed once, when it is made
+    or grown. Calls on one stream run one after another, so no two calls
+    in flight share a buffer; calls on other streams get their own. (A
+    CUDA graph that captures a call keeps its buffer: replay such a graph
+    on one stream at a time.)"""
+    import torch
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    t = _tickets.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 2 * (0 if t is None else t.numel()), 1024),
+                        dtype=torch.int32, device=device)
+        _tickets[key] = t
+    return t

@@ -39,7 +39,6 @@ VPC = 16                       # values of a lane's chunk of a row
 MAX_GRID_Y = 65535
 launches = 0
 _KVMODE = {torch.float32: 32, torch.bfloat16: 16}
-_tickets: dict = {}
 
 
 class PagedPlan(NamedTuple):
@@ -159,31 +158,15 @@ def attend(q, k_pages, v_pages, table, lengths, offset: int, k_scale=None,
         return out
     part = tickets = None
     if plan.ctas > 1:
+        from repro_torch.kernels import _build
         # room for every (slot, head, CTA): which slots span CTAs depends
         # on the lengths, which stay on the card
         part = torch.empty(b * kvh * plan.ctas * g * (2 + dh),
                            dtype=torch.float32, device=q.device)
-        tickets = _ticket_buffer(q.device, b * kvh)
+        tickets = _build.ticket_buffer(q.device, b * kvh)
     _launch(q, k_pages, v_pages, kvmode, table, lengths, offset, ks, vs, out,
             part, tickets, plan, num_pages)
     return out
-
-
-def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
-    """Zeroed int32 counters, one a (slot, head), kept per device and
-    stream: the kernel's last CTA of a (slot, head) resets its counter to
-    0, so they are zeroed once, when the buffer is made or grown. Calls
-    on one stream run one after another, so no two calls in flight share
-    a buffer; calls on other streams get their own. (A CUDA graph that
-    captures a call keeps its buffer: replay such a graph on one stream
-    at a time.)"""
-    key = (device, torch.cuda.current_stream(device).cuda_stream)
-    t = _tickets.get(key)
-    if t is None or t.numel() < n:
-        t = torch.zeros(max(n, 2 * (0 if t is None else t.numel()), 1024),
-                        dtype=torch.int32, device=device)
-        _tickets[key] = t
-    return t
 
 
 def _launch(q, kp, vp, kvmode, table, lengths, offset, ks, vs, out, part,

@@ -39,6 +39,144 @@ def test_ef_sqnorm(dtype):
     assert got.dtype == np.float32
 
 
+# the row widths the main paths give ef_sqnorm: ragged tails, a norm's
+# scale, a Mamba2 conv weight (fp32 on the path), zamba2_7b's wz/wx/out_proj,
+# minitron_4b's embedding/head
+EF_PLAN_NS = (1, 7, 2048, 29_696, 25_690_112, 786_432_000)
+
+
+@pytest.mark.parametrize("n", EF_PLAN_NS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ef_sqnorm_launch_plan_covers_each_row_once(n, dtype):
+    """The kernel's CTAs of a row take [c·chunk, min((c+1)·chunk, N)) for
+    c < ctas: together they cover [0, N) once, with no gap, no overlap and
+    no empty CTA. A chunk is whole steps (threads × unroll loads); on the
+    vector route every load is 16 bytes and every CTA's body whole loads.
+    A row stays within MAX_CTAS chunks (the last CTA folds at most 4
+    partials a thread); a row of up to MAX_CTAS steps of 256 threads gets
+    a CTA a step (a 29,696-element fp32 row is 8 CTAs, not one), a longer
+    one 512-thread CTAs."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    for aligned in (True, False):
+        plan = kef.launch_plan(n, dtype, aligned)
+        ranges = [(c * plan.chunk, min((c + 1) * plan.chunk, n))
+                  for c in range(plan.ctas)]
+        assert ranges[0][0] == 0 and ranges[-1][1] == n
+        assert all(lo < hi for lo, hi in ranges)
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+        step = plan.threads * plan.unroll * plan.vec
+        assert plan.chunk % step == 0 and plan.threads % 32 == 0
+        if plan.vec > 1:
+            assert aligned and plan.vec * esize == 16 and plan.unroll >= 4
+            assert all((hi - lo) % plan.vec == 0 for lo, hi in ranges)
+        else:
+            assert not aligned or n % (16 // esize) != 0
+        assert 1 <= plan.ctas <= kef.MAX_CTAS
+        assert -(-plan.ctas // plan.threads) <= 4
+        one_step = -(-n // (256 * plan.unroll * plan.vec)) <= kef.MAX_CTAS
+        assert plan.threads == (256 if one_step else 512)
+        if one_step:
+            assert plan.chunk == step
+    assert kef.launch_plan(29_696, torch.float32, True).ctas == 8
+
+
+def test_ef_sqnorm_offsets_are_64_bit():
+    """4 × 786.4 M elements: the last CTA of the last row starts past 2^31
+    elements, so the launcher takes N and the chunk as long long and the
+    kernel forms the row, its chunk and every index in 64 bits."""
+    import ctypes
+    from repro_torch.kernels import _build
+
+    n, b = 786_432_000, 4
+    plan = kef.launch_plan(n, torch.bfloat16, True)
+    assert (b - 1) * n + (plan.ctas - 1) * plan.chunk >= 2**31
+    assert b * plan.ctas <= kef.MAX_GRID
+    sig = _build.SIGNATURES["ef_sqnorm_launch"]
+    assert sig[2] is sig[3] is sig[7] is ctypes.c_longlong   # b, n, chunk
+    src = (_build.CSRC / "ef_sqnorm.cu").read_text()
+    for decl in ("const long long row", "const long long lo",
+                 "const long long hi", "long long s = threadIdx.x",
+                 "const long long j"):
+        assert decl in src, decl
+
+
+def test_ef_sqnorm_plan_does_not_depend_on_b(monkeypatch):
+    """``launch_plan`` takes (N, dtype, alignment) only, and the wrapper
+    hands the launcher the same plan for a (1, N) row as for a (4, N)
+    call, with partials for B × ctas and a ticket a row: so a (1, N) row
+    keeps the bits of that row of the batch (the per-leaf EF reduction
+    relies on it). Two calls give the launcher the same plan."""
+    import inspect
+    from repro_torch.kernels import _build
+
+    assert list(inspect.signature(kef.launch_plan).parameters) == [
+        "n", "dtype", "aligned"]
+    calls = []
+
+    class FakeLib:
+        def ef_sqnorm_launch(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(_build, "lib", lambda: FakeLib())
+    monkeypatch.setattr(_build, "stream_ptr", lambda device: 0)
+    monkeypatch.setattr(_build, "ticket_buffer",
+                        lambda device, n: torch.zeros(max(n, 1024),
+                                                      dtype=torch.int32))
+    launches = kef.launches
+    g = torch.zeros((4, 29_696), dtype=torch.float32)
+    for x in (g, g[1:2], g, g[:1]):
+        kef._launch(x, torch.empty(x.shape[0]))
+    assert kef.launches == launches + 4
+    plans = [c[4:9] for c in calls]
+    assert plans[0] == plans[1] == plans[2] == plans[3]
+    assert plans[0] == tuple(kef.launch_plan(29_696, torch.float32, True))
+    assert [c[2] for c in calls] == [4, 1, 4, 1]
+
+
+def _block_sum(v):
+    """``common.cuh:block_sum`` in fp32: each warp's xor butterfly, then
+    warp 0's over the warp sums (zeros past the last warp)."""
+    def warp_sum(w):
+        w = w.astype(np.float32)
+        for o in (16, 8, 4, 2, 1):
+            w = w + w[np.arange(32) ^ o]
+        return w[0]
+    warps = np.array([warp_sum(w) for w in v.reshape(-1, 32)], np.float32)
+    return warp_sum(np.pad(warps, (0, 32 - warps.size)))
+
+
+@pytest.mark.parametrize("n,dtype", [(20_000, np.float32), (12_345, "bfloat16")])
+def test_ef_sqnorm_plan_fold_order_matches_the_reference(n, dtype):
+    """Each chunk of the plan reduced by the plain version, the partials
+    folded in the last CTA's order (thread t adds partials t, t + threads,
+    … in chunk order, then the block's butterfly): equal to the Pallas
+    kernel in interpret mode and the reference oracle within rtol 1e-5
+    (as ``test_ef_sqnorm``), so a chunk the plan drops or counts twice
+    shows here. 20,000 fp32 takes the vector route in 5 CTAs, 12,345 bf16
+    (N % 8 != 0) the scalar route in 7."""
+    rng = np.random.default_rng(1)
+    g = rng.normal(size=(4, n)).astype(np.float32)
+    gj = jnp.asarray(g, dtype=jnp.bfloat16 if dtype == "bfloat16" else jnp.float32)
+    gt = torch.from_numpy(np.array(gj.astype(jnp.float32)))
+    if dtype == "bfloat16":
+        gt = gt.to(torch.bfloat16)
+    plan = kef.launch_plan(n, gt.dtype, True)
+    assert plan.ctas > 1 and plan.vec == (4 if dtype == np.float32 else 1)
+    got = []
+    for row in gt:
+        parts = [tref.ef_sqnorm(row[None, c * plan.chunk:(c + 1) * plan.chunk]).item()
+                 for c in range(plan.ctas)]
+        lanes = np.zeros(plan.threads, np.float32)
+        for i, p in enumerate(parts):
+            lanes[i % plan.threads] += np.float32(p)
+        got.append(_block_sum(lanes))
+    got = np.array(got, np.float32)
+    np.testing.assert_allclose(got, np.asarray(jref.ef_sqnorm(gj)), rtol=1e-5)
+    np.testing.assert_allclose(got, np.asarray(ef_sqnorm_pallas(gj, interpret=True)),
+                               rtol=1e-5)
+
+
 @pytest.mark.parametrize("bits", (8, 6, 4, 3))
 @pytest.mark.parametrize("group_size", [None, 16])
 def test_qmm(bits, group_size):
