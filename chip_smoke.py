@@ -90,6 +90,19 @@ Phases, in order; any failure exits non-zero:
      pages == the dense cache and tp=2 on one card == tp=1; state bytes
      a slot; last, a decode step of each under the profiler (launches
      and device ms a step);
+  3k. the audio and vlm families and the paper's testbed
+     (``FAMILY_PATHS``, ``testbed_path``): musicgen_large and
+     phi3_vision_4_2b at full width cut to 4 layers, each through the
+     main path (the report peak within 1.3 x params + 2 GB; musicgen on
+     (B, 128, 4) codebook grids, phi3_vision on 576 image patches + 128
+     text tokens a sample; W8/W4 QTensors, FIT KV widths, 8 paged
+     requests on 4 slots, alone == batched), musicgen's 16-bit pages ==
+     the dense cache on its (P, 4) prompt grids, phi3_vision's prefill
+     of one request's image patches and text against the forward on the
+     same inputs (the last position's argmax); then the CNN and the
+     U-Net at their own widths: SGD training, the FIT report, FIT and
+     the quantized loss change of 32 random mixed-precision configs,
+     their Spearman, test accuracy and mIoU;
   4. print the kernels line and the main-path metrics;
   5. print {"ok": true, "device": {...}} as the last line.
 
@@ -178,9 +191,12 @@ def bound_ms(nbytes: float, ops: float, peak_ops: float):
 # the (1, N) rows the main paths' weight traces give the kernel, one
 # block and one sample at a time: minitron_4b's embedding/head
 # (256000 x 3072), llama3_8b's (128256 x 4096), zamba2_7b's wz/wx/out_proj
-# (3584 x 7168), a Mamba2 conv weight in fp32 (4 x 7424), a norm's scale
-EF_PATH_ROWS = (786_432_000, 525_336_576, 25_690_112, 2048)
-EF_PATH_ROWS_F32 = (29_696,)
+# (3584 x 7168), musicgen_large's embedding (4 x 2048 x 2048) and head
+# (2048 x 8192), a norm's scale; in fp32 a Mamba2 conv weight (4 x 7424)
+# and the default CNN's conv1 (3 x 3 x 3 x 16), fc (512 x 10) and conv3
+# (3 x 3 x 32 x 32) blocks
+EF_PATH_ROWS = (786_432_000, 525_336_576, 25_690_112, 16_777_216, 2048)
+EF_PATH_ROWS_F32 = (29_696, 432, 5120, 9216)
 # an activation tap as ef_trace_activations reduces it on phase 3b's
 # internlm2_1_8b path: the k / v site of 4 x 128 tokens, (B, S·KV·Dh) bf16
 EF_TAP_ROWS = ((4, 128 * 8 * 128),)
@@ -1108,6 +1124,10 @@ PHASE2 = [("ef_sqnorm", check_ef_sqnorm, {}),
           # chunks a row) over 32 kv heads
           ("paged_attention", check_paged_attention,
            {"kvh": 32, "g": 1, "dh": 112, "widths": (8, 4, 16)}),
+          # musicgen_large: G = 1 at Dh = 64 (four 16-value chunks a row)
+          # over 32 kv heads
+          ("paged_attention", check_paged_attention,
+           {"kvh": 32, "g": 1, "dh": 64, "widths": (8, 4, 16)}),
           ("qmm", check_qmm, {}),
           ("qmm", check_qmm, {"shapes": QMM_PATH_SHAPES, "widths": (8, 4),
                               "ms": (4,)}),
@@ -1191,6 +1211,8 @@ def main() -> int:
             check(timer, gen, rows, **kw)
     log(f"phase 2: {len(rows)} kernel checks passed in "
         f"{time.perf_counter() - t0:.1f} s")
+    # the timer's 128 MB flush buffer would count in every later peak
+    del timer
     result = {"card": card, "kind": kind, "kernel_checks": rows}
 
     if not args.kernels_only:
@@ -1273,6 +1295,14 @@ def main() -> int:
         result["recurrent_path"] = rp = recurrent_path()
         log(f"phase 3j: the recurrent families in {time.perf_counter() - t0:.1f} s")
         log(json.dumps({"recurrent_path": rp}))
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        result["family_path"] = fp = family_path()
+        result["testbed_path"] = tb = testbed_path()
+        log(f"phase 3k: the audio and vlm families and the paper's testbed in "
+            f"{time.perf_counter() - t0:.1f} s")
+        log(json.dumps({"family_path": fp, "testbed_path": tb}))
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1283,7 +1313,8 @@ def main() -> int:
     paths = ([mp["launches"] for mp in mps.values()]
              + [tpp["launches"], spp["launches"], op["launches"],
                 cp["launches"], lp["launches"], tp["launches"], hp["launches"]]
-             + list(rp["launches"].values()))
+             + list(rp["launches"].values()) + list(fp["launches"].values())
+             + list(tb["launches"].values()))
     log(json.dumps({"kernels": kernels_line(rows, paths)}))
     for arch, mp in mps.items():
         log(f"[{card}] {arch} ({mp['layers']} layers): report "
@@ -1393,6 +1424,7 @@ def main() -> int:
         f"Spearman of the {hp['blocks']} per-block traces "
         f"{hp['spearman']:.4f}")
     log_recurrent(card, rp)
+    log_families(card, fp, tb)
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -1427,6 +1459,38 @@ def log_recurrent(card: str, rp: dict) -> None:
         "3j seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in rp["seconds"].items()))
 
 
+def log_families(card: str, fp: dict, tb: dict) -> None:
+    """Phase 3k's summary lines."""
+    for arch, mp in fp["paths"].items():
+        log(f"[{card}] 3k {arch} ({mp['layers']} layers): report "
+            f"{mp['report_s']:.2f} s, report_peak_mem_gb "
+            f"{mp['report_peak_mem_gb']:.2f} beside param_bytes "
+            f"{mp['param_bytes'] / 1e9:.2f} GB; packed weights "
+            f"{mp['packed_bytes'] / 1e9:.3f} GB vs FIT-predicted "
+            f"{mp['predicted_bytes'] / 1e9:.3f} GB; KV widths {mp['kv_bits']}; "
+            f"decode {mp['decode_tokens_per_s']:.1f} tok/s, "
+            f"{mp['decode_ms_per_step']:.1f} ms a step; TTFT p50 "
+            f"{mp['ttft_p50']:.3f} s p95 {mp['ttft_p95']:.3f} s; peak "
+            f"{mp['peak_mem_gb']:.1f} GB")
+        if "vlm_prefill" in mp:
+            vp = mp["vlm_prefill"]
+            log(f"[{card}] 3k {arch} prefill of {vp['image_positions']} image "
+                f"patches + {vp['positions'] - vp['image_positions']} text "
+                f"tokens vs forward: last argmax equal, max rel diff "
+                f"{vp['max_rel_diff']:.3e}; forward {vp['forward_s']:.2f} s, "
+                f"prefill {vp['prefill_s']:.2f} s")
+    for name in ("cnn", "unet"):
+        t = tb[name]
+        log(f"[{card}] 3k {name}: {t['steps']} SGD steps in {t['train_s']:.2f} s, "
+            f"{t['score_name']} {t['score']:.4f}; report ({t['n_report']} "
+            f"samples, {t['weight_blocks']} blocks, {t['act_sites']} sites) "
+            f"{t['report_s']:.2f} s, peak {t['report_peak_mem_gb']:.3f} GB; "
+            f"Spearman(FIT, quantized loss change) over {t['configs']} "
+            f"configs {t['spearman']:.4f}")
+    log(f"[{card}] phase 3k seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in fp["seconds"].items()))
+
+
 KERNELS = [
     # name, source, TPU kernel it replaces, representative phase-2 row
     ("ef_sqnorm", "src/repro_torch/kernels/csrc/ef_sqnorm.cu",
@@ -1452,7 +1516,8 @@ KERNELS = [
      "causal S=T=2048 B=4 H=16 D=128 bfloat16"),
 ]
 SMOKE_ARCHS = ("internlm2_1_8b", "olmoe_1b_7b", "deepseek_moe_16b", "llama3_8b",
-               "phi3_mini_3_8b", "minitron_4b", "mamba2_130m", "zamba2_7b")
+               "phi3_mini_3_8b", "minitron_4b", "mamba2_130m", "zamba2_7b",
+               "musicgen_large", "phi3_vision_4_2b")
 # full-width main paths (arch, Poisson requests, with the profiler and
 # decode-step A/B extras, layers: None for full depth), driven in this
 # order; phases 3f, 3g and 3i reuse the first two. Serving is paced by
@@ -1505,6 +1570,11 @@ PATH_KERNELS = {"dense": ("ef_sqnorm", "qmm", "paged_attention"),
                 "ssm": ("ef_sqnorm", "qmm"),
                 "hybrid": ("ef_sqnorm", "qmm", "paged_attention"),
                 "hybrid_tp": ("qmm_groups", "qmm", "paged_attention"),
+                # phase 3k: the audio and vlm families, the paper's testbed
+                "audio": ("ef_sqnorm", "qmm", "paged_attention"),
+                "vlm": ("ef_sqnorm", "qmm", "paged_attention"),
+                "cnn": ("ef_sqnorm",),
+                "unet": ("ef_sqnorm",),
                 # phase 3i: obs-enabled serving, by route
                 "obs": ("qmm", "paged_attention"),
                 "obs_moe": ("qmm", "grouped_qmm", "paged_attention"),
@@ -1570,12 +1640,14 @@ def check_small_reference(arch: str) -> float:
         else:
             st = init_decode_state(cfg, 2, 32, device=dev)
         ctx = DequantContext(None, cfg.param_dtype, int8_compute=True)
-        toks = (torch.arange(2 * 12, dtype=torch.int32).reshape(2, 12) * 7
-                % cfg.vocab_size)
+        cb = (cfg.num_codebooks,) if cfg.family == "audio" else ()
+        toks = (torch.arange(2 * 12 * math.prod(cb), dtype=torch.int32)
+                .reshape((2, 12) + cb) * 7 % cfg.vocab_size)
         logits = []
         with torch.no_grad():
             for i in range(12):
-                lg, st = decode_step(qp, st, toks[:, i:i + 1].to(dev), cfg, ctx)
+                lg, st = decode_step(qp, st, toks[:, i:i + 1].to(dev), cfg,
+                                     ctx=ctx)
                 logits.append(lg.float().cpu())
         out[dev] = torch.stack(logits)
     err = (out["cpu"] - out["cuda"]).abs().max().item()
@@ -1585,7 +1657,7 @@ def check_small_reference(arch: str) -> float:
 
 
 def main_path(arch: str, n_requests: int = 8, extras: bool = True,
-              layers=None, prompt_len=(16, 64)):
+              layers=None, prompt_len=(16, 64), before_quant=None):
     """One full-width main path; returns its metrics and what phase 3f
     needs to serve the same requests sharded. Every kernel counter is set
     to 0 at the start and read right after the serving run. The report's
@@ -1596,7 +1668,12 @@ def main_path(arch: str, n_requests: int = 8, extras: bool = True,
     ``prompt_len``: the requests' prompt range (each prompt token is one
     host-paced decode step). A
     family that holds no KV (ssm) serves from the dense per-slot state,
-    with neither KV taps in its report nor FIT KV widths."""
+    with neither KV taps in its report nor FIT KV widths. The report's
+    batches are 4 samples of 128 positions: the audio family's (4, 128,
+    CB) codebook grids, and for the vlm family ``img_tokens`` image
+    patches before 128 text tokens. ``before_quant(params, cfg)``: a
+    check on the fp params before they are quantized and freed, whose
+    dict joins the metrics."""
     from repro_torch.configs import get_config
     from repro_torch.core.report import build_report
     from repro_torch.launch.mesh import TPMesh
@@ -1626,8 +1703,11 @@ def main_path(arch: str, n_requests: int = 8, extras: bool = True,
     # the init's own peak holds fp32 temporaries of the embedding and
     # the head; the report's is measured apart from it
     res["init_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    stream = lm_batches(LMStreamConfig(vocab_size=cfg.vocab_size, seq_len=128,
-                                       global_batch=4, seed=0))
+    img = cfg.img_tokens if cfg.family == "vlm" else 0
+    stream = lm_batches(LMStreamConfig(
+        vocab_size=cfg.vocab_size, seq_len=128 + img, global_batch=4,
+        num_codebooks=cfg.num_codebooks if cfg.family == "audio" else 0,
+        img_tokens=img, d_model=cfg.d_model, seed=0))
     batches = [next(stream) for _ in range(2)]
     paged = kv_layer_count(cfg) > 0
     tap_loss, tap_shapes, act_fn = kv_report_fns(cfg) if paged else (None,) * 3
@@ -1667,6 +1747,8 @@ def main_path(arch: str, n_requests: int = 8, extras: bool = True,
         res["dp_report"] = {"shards": 2, "report_s": time.perf_counter() - t0,
                             "max_rel_err": err}
 
+    if before_quant is not None:
+        res.update(before_quant(params, cfg))
     policy = QuantPolicy(allowed_bits=(8, 4))
     bit_cfg = bit_config_from_report(report, policy, avg_bits=6.0)
     t0 = time.perf_counter()
@@ -3337,6 +3419,232 @@ def recurrent_path() -> dict:
         del engine
         lap(f"{arch} step profile")
     del kept
+    return res
+
+
+# phase 3k: the audio and vlm families at full width (arch, Poisson
+# requests, layers), cut to FAMILY_LAYERS: at 8 layers the whole script
+# took 711.9 s and 927.0 s on two NVIDIA H100 80GB HBM3 (700 W)
+# machines, over its 760 s aim, so the newest phase's depth is cut first. Prompts of 16-64 positions
+# (musicgen_large's as (P, 4) codebook grids; the vlm engine serves text
+# prompts, as the reference's requests carry no image). Every serve
+# holds 8 requests on the engine's 4 slots.
+FAMILY_LAYERS = 4
+FAMILY_PATHS = (("musicgen_large", 8, FAMILY_LAYERS),
+                ("phi3_vision_4_2b", 8, FAMILY_LAYERS))
+VLM_PREFILL_TEXT = 16   # text tokens after the image patches (3k's prefill)
+
+
+def vlm_prefill_check(params, cfg) -> dict:
+    """One request's ``prefill`` (its ``img_tokens`` image patches by
+    embedding, a position a decode step, then ``VLM_PREFILL_TEXT`` text
+    tokens) against ``forward`` on the same inputs, the bf16 weights on
+    the card: the last position's argmax must match; the largest
+    difference over every position, relative to the largest logit, is
+    reported (bf16 rounding of the cache against the forward's)."""
+    from repro_torch.models.decode import prefill
+    from repro_torch.models.transformer import forward
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    inputs = {"tokens": torch.randint(0, cfg.vocab_size, (1, VLM_PREFILL_TEXT),
+                                      generator=gen, device="cuda",
+                                      dtype=torch.int32),
+              "image_embed": torch.randn((1, cfg.img_tokens, cfg.d_model),
+                                         generator=gen, device="cuda")}
+    n = cfg.img_tokens + VLM_PREFILL_TEXT
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        full, _ = forward(params, inputs, cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dec, _ = prefill(params, inputs, cfg, max_len=n)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    v = cfg.vocab_size
+    full, dec = full[..., :v].float(), dec[..., :v].float()
+    if full.shape != (1, n, v) or dec.shape != full.shape \
+            or not bool(torch.isfinite(dec).all()):
+        raise AssertionError(f"vlm prefill: logits {tuple(dec.shape)} vs "
+                             f"forward {tuple(full.shape)}")
+    rel = ((full - dec).abs().max() / full.abs().max()).item()
+    a_full, a_dec = int(full[0, -1].argmax()), int(dec[0, -1].argmax())
+    if a_full != a_dec:
+        raise AssertionError(f"vlm prefill: last argmax {a_dec} != forward's "
+                             f"{a_full} (max rel diff {rel:.3e})")
+    return {"vlm_prefill": {"positions": n, "image_positions": cfg.img_tokens,
+                            "max_rel_diff": rel, "last_argmax": a_full,
+                            "forward_s": t1 - t0, "prefill_s": t2 - t1}}
+
+
+def family_path() -> dict:
+    """Phase 3k, first half: ``FAMILY_PATHS`` through ``main_path`` (the
+    report peak within 1.3 x params + 2 GB; W8/W4 QTensors; FIT KV
+    widths; paged serving; alone == batched), phi3_vision's prefill
+    against its forward before quantization, and on musicgen's params 8
+    requests of (P, 4) prompt grids arrived at once on 4 slots: 16-bit
+    pages == the dense cache, token grid for token grid. Counters are
+    reset just before each path and read just after it."""
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.loadgen import poisson_requests
+
+    res = {"paths": {}, "launches": {}, "seconds": {}}
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        res["seconds"][name] = now - clock[0]
+        clock[0] = now
+
+    for arch, n_requests, layers in FAMILY_PATHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        check = vlm_prefill_check if arch == "phi3_vision_4_2b" else None
+        mp, keep = main_path(arch, n_requests, False, layers,
+                             before_quant=check)
+        res["paths"][arch] = mp
+        res["launches"][arch] = mp["launches"]
+        lap(f"{arch} main path")
+        cfg = keep["cfg"]
+        if cfg.family == "audio":
+            ecfg = dataclasses.replace(keep["ecfg"], clock="steps")
+
+            def reqs():
+                rs = poisson_requests(cfg, 8, rate=1.0, prompt_len=(8, 24),
+                                      gen_len=8, seed=3)
+                for r in rs:
+                    r.arrival_time = 0.0
+                return rs
+
+            grids = {}
+            for kv in ("paged", "dense"):
+                fin, _ = Engine(keep["qparams"], cfg,
+                                dataclasses.replace(ecfg, kv_cache=kv)).run(reqs())
+                grids[kv] = [r.output_tokens.tolist() for r in fin]
+            first = grids["dense"][0]
+            shape = (len(first), len(first[0]))
+            if grids["paged"] != grids["dense"] or shape != (8, cfg.num_codebooks):
+                raise AssertionError(f"musicgen: 16-bit pages != dense cache, "
+                                     f"or grids of shape {shape}")
+            mp["paged_equals_dense"] = {"requests": len(grids["dense"]),
+                                        "grid": list(shape)}
+            lap(f"{arch} 16-bit pages == dense")
+        del keep
+    return res
+
+
+TESTBED = {
+    # name: SGD steps, batch, learning rate, train / test samples, report
+    # samples; the CNN's recipe is tests/test_fit_metric.py's
+    "cnn": dict(steps=400, batch=128, lr=3e-3, n_train=4096, n_test=1024,
+                n_report=256),
+    "unet": dict(steps=400, batch=32, lr=3e-3, n_train=1024, n_test=256,
+                 n_report=64),
+}
+TESTBED_CONFIGS = 32
+
+
+def testbed_path() -> dict:
+    """Phase 3k, second half: the paper's own testbed on the card at its
+    own widths (``init_cnn`` / ``init_unet`` defaults, the datasets'
+    defaults): SGD training (``TESTBED``), the FIT report (EF weight and
+    activation traces, each block's per-sample gradient reduced by
+    ``ef_sqnorm`` as a (1, N) fp32 row), then FIT and the quantized loss
+    change (``QATContext``) of ``TESTBED_CONFIGS`` random mixed-precision
+    configs, their Spearman (the paper's Table-2 protocol; printed, no
+    gate), test accuracy / mIoU. Counters are reset just before each
+    report and read after its sweep."""
+    from repro_torch.core import build_report, sample_configs, spearman
+    from repro_torch.data.synthetic import (
+        ClassifyConfig, SegmentConfig, batched, classify_dataset,
+        segment_dataset)
+    from repro_torch.models import cnn, unet
+    from repro_torch.models.context import QATContext
+    from repro_torch.quant.policy import QuantPolicy
+    from repro_torch.utils.pytree import named_leaves
+
+    models = {
+        "cnn": (cnn.init_cnn(seed=0), cnn.cnn_loss, cnn.cnn_tap_loss,
+                cnn.cnn_tap_shapes, cnn.cnn_act_fn,
+                lambda n, split: classify_dataset(ClassifyConfig(), n, split),
+                cnn.cnn_accuracy),
+        "unet": (unet.init_unet(seed=0), unet.unet_loss, unet.unet_tap_loss,
+                 unet.unet_tap_shapes, unet.unet_act_fn,
+                 lambda n, split: segment_dataset(SegmentConfig(), n, split),
+                 unet.unet_miou),
+    }
+    res = {"launches": {}}
+    for name, (params, loss_fn, tap_loss, tap_shapes, act_fn, data, score) \
+            in models.items():
+        rc = TESTBED[name]
+        out = res[name] = dict(rc)
+        t0 = time.perf_counter()
+        xtr, ytr = data(rc["n_train"], 0)
+        xte, yte = data(rc["n_test"], 7)
+        out["data_s"] = time.perf_counter() - t0
+        leaves = [p.requires_grad_(True) for _, p in named_leaves(params)]
+        t0 = time.perf_counter()
+        for i, (x, y) in enumerate(batched(xtr, ytr, rc["batch"], seed=0)):
+            if i >= rc["steps"]:
+                break
+            batch = (torch.from_numpy(x).to("cuda"), torch.from_numpy(y).to("cuda"))
+            grads = torch.autograd.grad(loss_fn(params, batch), leaves)
+            with torch.no_grad():
+                for p, g in zip(leaves, grads):
+                    p.sub_(rc["lr"] * g)
+        torch.cuda.synchronize()
+        out["train_s"] = time.perf_counter() - t0
+        for p in leaves:
+            p.requires_grad_(False)
+        out["score"] = score(params, torch.from_numpy(xte).to("cuda"),
+                             torch.from_numpy(yte).to("cuda"))
+        out["score_name"] = "test accuracy" if name == "cnn" else "test mIoU"
+        batch = (torch.from_numpy(xtr[:rc["n_report"]]).to("cuda"),
+                 torch.from_numpy(ytr[:rc["n_report"]]).to("cuda"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        report = build_report(loss_fn, tap_loss, lambda b: tap_shapes(params, b),
+                              act_fn, params, [batch], tolerance=None,
+                              max_batches=1)
+        torch.cuda.synchronize()
+        out["report_s"] = time.perf_counter() - t0
+        out["report_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        traces = list(report.weight_traces.values()) + list(report.act_traces.values())
+        if not all(math.isfinite(t) and t >= 0 for t in traces) \
+                or not report.act_traces:
+            raise AssertionError(f"{name}: non-finite, negative or missing EF trace")
+        out["weight_blocks"] = len(report.weight_traces)
+        out["act_sites"] = len(report.act_traces)
+        out["block_sizes"] = report.param_sizes
+        configs = sample_configs(report, QuantPolicy(allowed_bits=(8, 6, 4, 3),
+                                                     pinned_substrings=()),
+                                 n=TESTBED_CONFIGS, seed=3)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            base = float(loss_fn(params, batch))
+            fits, dloss = [], []
+            for c in configs:
+                lw = {k: float(2 ** b - 1) for k, b in c.weight_bits.items()}
+                la = {k: float(2 ** b - 1) for k, b in c.act_bits.items()}
+                fits.append(report.fit(c))
+                dloss.append(float(loss_fn(params, batch,
+                                           ctx=QATContext(lw, la))) - base)
+        torch.cuda.synchronize()
+        out["sweep_s"] = time.perf_counter() - t0
+        res["launches"][name] = read_counts()
+        for k in PATH_KERNELS[name]:
+            if res["launches"][name][k] <= 0:
+                raise AssertionError(f"kernel {k} was not launched by the "
+                                     f"{name} report")
+        if not all(math.isfinite(v) for v in fits + dloss):
+            raise AssertionError(f"{name}: non-finite FIT or loss change")
+        out.update({"base_loss": base, "configs": len(configs),
+                    "spearman": spearman(fits, dloss),
+                    "fit_range": [min(fits), max(fits)],
+                    "dloss_range": [min(dloss), max(dloss)]})
+        del params, report
     return res
 
 

@@ -2,10 +2,9 @@
 
 ``ModelConfig`` is the same frozen dataclass as the reference's;
 ``param_dtype`` returns a torch dtype. ``ARCH_IDS`` registers the
-architectures the port serves so far (the dense, MoE, ssm and hybrid
-families), in the reference's order; the audio and vlm families are not
-ported yet. ``SHAPES`` maps the assigned input-shape ids to (seq_len,
-global_batch, kind).
+reference's ten architectures (the dense, MoE, ssm, hybrid, audio and
+vlm families) in its order. ``SHAPES`` maps the assigned input-shape ids
+to (seq_len, global_batch, kind).
 """
 from __future__ import annotations
 
@@ -90,10 +89,12 @@ ARCH_IDS = [
     "zamba2_7b",
     "olmoe_1b_7b",
     "deepseek_moe_16b",
+    "musicgen_large",
     "minitron_4b",
     "llama3_8b",
     "phi3_mini_3_8b",
     "internlm2_1_8b",
+    "phi3_vision_4_2b",
 ]
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}

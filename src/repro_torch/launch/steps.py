@@ -12,7 +12,7 @@ import torch
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs import ModelConfig
 from repro_torch.models.transformer import (
-    QATLevels, loss_fn, require_ported_family)
+    QATLevels, loss_fn, require_known_family)
 from repro_torch.optim.adamw import AdamState, AdamWConfig, adamw_update
 from repro_torch.quant.policy import BitConfig
 from repro_torch.utils.pytree import map_with_names, named_leaves
@@ -65,9 +65,10 @@ def uniform_levels(cfg: ModelConfig, weight_bits: int,
     attention and MLP (or expert, or Mamba2 projection but ``wdt``) weight
     at ``weight_bits``; the attention output and the MLP hidden
     activation (the Mamba2 conv and SSD outputs) at ``act_bits`` (None:
-    none). The hybrid gets empty tables: its blocks run unquantized under
-    QAT, as in the reference."""
-    require_ported_family(cfg)
+    none). The audio and vlm families take the dense family's blocks. The
+    hybrid gets empty tables: its blocks run unquantized under QAT, as in
+    the reference."""
+    require_known_family(cfg)
     dev = resolve_device(device)
     if cfg.family == "moe":
         wkeys = ["attn/wq", "attn/wk", "attn/wv", "attn/wo",

@@ -64,6 +64,8 @@ def train(arch: str, smoke: bool, steps: int, batch: int, seq: int,
 
     stream = lm_batches(LMStreamConfig(
         vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+        num_codebooks=cfg.num_codebooks if cfg.family == "audio" else 0,
+        img_tokens=cfg.img_tokens if cfg.family == "vlm" else 0,
         d_model=cfg.d_model, seed=0))
     for _ in range(start_step):          # fast-forward the stream on resume
         next(stream)

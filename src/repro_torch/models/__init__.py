@@ -1,4 +1,6 @@
-"""Port of ``repro.models``: the dense, MoE, ssm (Mamba2) and hybrid (Zamba2) families."""
+"""Port of ``repro.models``: the dense, MoE, ssm (Mamba2), hybrid
+(Zamba2), audio and vlm families; the paper's CNN and U-Net testbeds in
+``models.cnn`` and ``models.unet``."""
 from repro_torch.models.transformer import (  # noqa: F401
     init_params, forward, loss_fn, vocab_padded, QATLevels)
 from repro_torch.models.decode import (  # noqa: F401

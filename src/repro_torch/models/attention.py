@@ -31,7 +31,13 @@ def init_attention(gen, cfg: ModelConfig, dtype) -> Dict:
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       causal: bool = True, chunk: int = 1024) -> torch.Tensor:
     """Online-softmax attention over KV chunks, never materializing the
-    S×T scores. q: (B,S,H,Dh); k,v: (B,T,H,Dh) -> (B,S,H,Dh)."""
+    S×T scores. q: (B,S,H,Dh); k,v: (B,T,H,Dh) -> (B,S,H,Dh).
+
+    The running max is a constant shift the output does not depend on,
+    so it is taken from the detached scores: the forward's values are
+    the reference's, the gradient the same function's, and the backward
+    keeps no copy of a chunk's masked scores (one (B, H, S, chunk) fp32
+    tensor less a layer where a gradient is taken)."""
     b, s, h, dh = q.shape
     t = k.shape[1]
     chunk = min(chunk, t)
@@ -56,7 +62,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if causal:
             valid = valid & (qpos[:, None] >= kpos[None, :])
         sc = torch.where(valid[None, None], sc, torch.full_like(sc, NEG_INF))
-        m_new = torch.maximum(m, torch.amax(sc, dim=-1))
+        m_new = torch.maximum(m, torch.amax(sc.detach(), dim=-1))
         p = torch.exp(sc - m_new[..., None])
         alpha = torch.exp(m - m_new)
         l = l * alpha + torch.sum(p, dim=-1)

@@ -1,10 +1,11 @@
 """Decode-state containers and one-token decode steps (port of
-``repro.models.decode``), for the dense, MoE, ssm and hybrid families.
+``repro.models.decode``), for every family.
 
 State layouts (leading layer dims before the batch):
 
-  dense / moe : a KVCache (L, B, T, KV, Dh) x 2 — or, paged, per-layer
-                page pools + page table (``kvcache.PagedState``);
+  dense / moe / audio / vlm : a KVCache (L, B, T, KV, Dh) x 2 — or,
+                paged, per-layer page pools + page table
+                (``kvcache.PagedState``);
   ssm         : a MambaState (L, B, H, N, P) fp32 + conv tails
                 (L, B, W-1, C) in the param dtype;
   hybrid      : MambaStates (G, period, B, ...) and the remainder's
@@ -13,7 +14,10 @@ State layouts (leading layer dims before the batch):
 
 ``pos`` is a () scalar or a (B,) per-slot vector (the serving engine).
 Caches and SSM states are written in place; the returned state holds
-the same tensors.
+the same tensors. The audio family's tokens are (B, T, CB) grids and its
+logits (B, T, CB, V); the vlm family's ``prefill`` ingests the image
+patches through ``decode_step(..., embed=...)`` a position at a time
+before the text.
 """
 from __future__ import annotations
 
@@ -28,7 +32,8 @@ from repro_torch.models.context import ColumnContext, Context
 from repro_torch.models.mamba2 import MambaState
 from repro_torch.models.transformer import (
     _attn_mlp_block_decode, _attn_mlp_block_decode_paged, _mamba_block_decode,
-    column_rmsnorm, logits_from_hidden, require_ported_family)
+    column_rmsnorm, embed_tokens, logits_from_hidden, require_known_family,
+    split_codebooks)
 
 
 class DecodeState(NamedTuple):
@@ -62,7 +67,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     GPU), the caches in the model dtype, or ``kv_dtype=torch.int8`` for
     the static-scale int8 cache (``attention.KV_SCALE``)."""
     from repro_torch.kvcache.paged import kv_layer_count
-    require_ported_family(cfg)
+    require_known_family(cfg)
     dev = resolve_device(device)
     pshape = (batch,) if per_slot_pos else ()
     pos = torch.zeros(pshape, dtype=torch.int32, device=dev)
@@ -84,7 +89,7 @@ def init_paged_decode_state(cfg: ModelConfig, pcfg, batch: int,
     states stay dense a slot (they are O(1) a slot). ``mesh``: a TPMesh
     to shard the pools over by kv head."""
     from repro_torch.kvcache.paged import init_paged_kv
-    require_ported_family(cfg)
+    require_known_family(cfg)
     if cfg.family == "ssm":
         raise ValueError(f"family {cfg.family!r} holds no KV cache to page")
     dev = resolve_device(device)
@@ -119,11 +124,16 @@ def _hybrid_sweep(params, state: DecodeState, x, cfg: ModelConfig, ctx,
     return x
 
 
-def decode_step(params, state: DecodeState, tokens: torch.Tensor,
-                cfg: ModelConfig, ctx: Optional[Context] = None
+def decode_step(params, state: DecodeState, tokens: Optional[torch.Tensor],
+                cfg: ModelConfig, ctx: Optional[Context] = None,
+                embed: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, DecodeState]:
-    """Decode tokens (B, T) -> logits (B, T, V). ``ctx`` hooks weight
-    access (e.g. ``DequantContext`` for packed serving).
+    """Decode tokens (B, T) (audio: (B, T, CB)) -> logits (B, T, V)
+    (audio: (B, T, CB, V)). ``ctx`` hooks weight access (e.g.
+    ``DequantContext`` for packed serving). ``embed`` (B, T, D), on the
+    dense and the paged route alike, takes the place of the token
+    embedding (``tokens`` may then be None): the vlm prefill's image
+    patches.
 
     T > 1 (the speculative verify and the draft's catch-up) is bitwise T
     sequential one-token steps, logits and cache: every K/V row is
@@ -134,9 +144,10 @@ def decode_step(params, state: DecodeState, tokens: torch.Tensor,
     kernels see all B·T rows in one call. The ssm and hybrid families
     carry recurrent state, which a rejected draft could not rewind: they
     refuse T > 1, as the reference does."""
-    require_ported_family(cfg)
+    require_known_family(cfg)
     ctx = ctx or Context()
-    x = params["embed"][tokens.long()].to(cfg.param_dtype)
+    x = (embed if embed is not None else embed_tokens(params, tokens, cfg)
+         ).to(cfg.param_dtype)
     tq = x.shape[1]
     if tq != 1 and cfg.family in ("ssm", "hybrid"):
         raise ValueError(
@@ -185,15 +196,16 @@ def decode_step(params, state: DecodeState, tokens: torch.Tensor,
     if tq == 1:
         return logits_from_hidden(params, x, cfg, ctx), new_state
     x = column_rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return ctx.matmul("head", x, params["head"]), new_state
+    return split_codebooks(ctx.matmul("head", x, params["head"]), cfg), new_state
 
 
 def prefill_into(params, state: DecodeState, tokens: torch.Tensor,
                  cfg: ModelConfig, ctx: Optional[Context] = None
                  ) -> Tuple[torch.Tensor, DecodeState]:
-    """Continue a decode state over a span of tokens (B, C): a loop of
-    one-token ``decode_step`` calls — exact decode numerics. Returns the
-    per-position logits (B, C, V) and the advanced state."""
+    """Continue a decode state over a span of tokens (B, C) (audio:
+    (B, C, CB)): a loop of one-token ``decode_step`` calls — exact decode
+    numerics. Returns the per-position logits (B, C, V) (audio: (B, C,
+    CB, V)) and the advanced state."""
     out = []
     for c in range(tokens.shape[1]):
         logits, state = decode_step(params, state, tokens[:, c:c + 1], cfg,
@@ -205,14 +217,24 @@ def prefill_into(params, state: DecodeState, tokens: torch.Tensor,
 def prefill(params, inputs: Mapping[str, torch.Tensor], cfg: ModelConfig,
             max_len: int, ctx: Optional[Context] = None
             ) -> Tuple[torch.Tensor, DecodeState]:
-    """Run the whole prompt ``inputs["tokens"]`` (B, S) from an empty
-    dense state of ``max_len`` positions on the tokens' device: the
-    per-position logits (B, S, V) and the filled state, through
-    ``prefill_into`` (exact decode numerics)."""
+    """Run the whole prompt ``inputs["tokens"]`` (B, S) (audio: (B, S,
+    CB)) from an empty dense state of ``max_len`` positions on the
+    tokens' device: the per-position logits and the filled state,
+    through ``prefill_into`` (exact decode numerics). The vlm family
+    first ingests ``inputs["image_embed"]`` (B, T_img, D) a position at a
+    time; its logits are the image positions' followed by the text's."""
     tokens = inputs["tokens"]
     state = init_decode_state(cfg, tokens.shape[0], max_len,
                               device=tokens.device)
-    return prefill_into(params, state, tokens, cfg, ctx=ctx)
+    img_logits = []
+    if cfg.family == "vlm" and "image_embed" in inputs:
+        img = inputs["image_embed"]
+        for t in range(img.shape[1]):
+            logits, state = decode_step(params, state, None, cfg, ctx=ctx,
+                                        embed=img[:, t:t + 1])
+            img_logits.append(logits)
+    logits, state = prefill_into(params, state, tokens, cfg, ctx=ctx)
+    return torch.cat(img_logits + [logits], dim=1), state
 
 
 def insert_ssm_slot(cfg: ModelConfig, state: DecodeState, sub: DecodeState,

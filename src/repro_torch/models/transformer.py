@@ -1,10 +1,17 @@
 """Decoder-only LM (port of ``repro.models.transformer``):
 
-  dense           : [attn + MLP] x L
-  moe             : [attn + MoE-FFN] x L
-  ssm             : [Mamba2 mixer] x L
-  hybrid (Zamba2) : groups of [the ONE shared attn/MLP block + period x
-                    Mamba2], then the remainder's Mamba2 layers
+  dense / audio / vlm : [attn + MLP] x L
+  moe                 : [attn + MoE-FFN] x L
+  ssm                 : [Mamba2 mixer] x L
+  hybrid (Zamba2)     : groups of [the ONE shared attn/MLP block + period
+                        x Mamba2], then the remainder's Mamba2 layers
+
+Frontend stubs, as in the reference: the audio family consumes
+multi-codebook token grids (B, S, CB) (EnCodec tokens; the codec itself
+is out of scope) through one (V, D) embedding a codebook, summed, and a
+(D, CB·V) head whose logits are (B, S, CB, V); the vlm family prepends
+precomputed CLIP patch embeddings ``inputs["image_embed"]`` (B, T_img,
+D), tapped as ``image_embed``, to the text embeddings.
 
 Always the unrolled layout, the block paths FIT, the bit allocator and
 the QTensor materializer key on: ``layers/<i>`` (dense, MoE, ssm); for
@@ -12,15 +19,18 @@ the hybrid ``shared`` (stored once), ``groups/<g>/<i>`` and ``rest/<i>``.
 The forward scopes the shared block's g-th application ``shared/<g>``
 (its activation taps are per application; its weight blocks are the one
 ``shared/...`` leaf). A MoE block holds a ``moe`` subtree in place of
-``mlp``. The audio and vlm families are not ported yet.
+``mlp``.
 
 Where a gradient is taken (the FIT report's per-sample and tap
-backwards, QAT), the ssm and hybrid blocks are rematerialized
+backwards, the Hessian probes, QAT), the blocks are rematerialized
 (``cfg.remat``, the reference's checkpointed blocks): a block keeps its
 input and recomputes its activations in the backward, so the report's
 memory does not grow with the depth times the batch of its tap backward
-(the SSD's (Q, Q, H) masks are ~7 MB a sample and a layer at Q = 128).
-The numbers are those of the plain forward.
+(the SSD's (Q, Q, H) masks are ~7 MB a sample and a layer at Q = 128;
+the vlm family's 704-position samples hold ~1 GB of fp32 attention
+scores a layer for 4 samples). The numbers are those of the plain
+forward. The attention blocks under QAT's per-layer contexts (training)
+are not rematerialized.
 
 QAT (``qat=QATLevels``) builds one ``QATContext`` per layer from the
 per-layer levels tables, as the reference's stacked-layer forward does,
@@ -44,7 +54,7 @@ from repro_torch.models.layers import init_mlp, init_norm, mlp_apply, rmsnorm
 from repro_torch.models.mamba2 import init_mamba2, mamba2_apply, mamba2_decode
 from repro_torch.models.moe import init_moe, moe_apply
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
 
 def vocab_padded(cfg: ModelConfig, multiple: int = 16) -> int:
@@ -52,10 +62,12 @@ def vocab_padded(cfg: ModelConfig, multiple: int = 16) -> int:
     return ((v + multiple - 1) // multiple) * multiple
 
 
-def require_ported_family(cfg: ModelConfig) -> None:
+def require_known_family(cfg: ModelConfig) -> None:
+    """Refuse a family the model does not know, with the reference's
+    error type (its constructors raise ``ValueError(cfg.family)``)."""
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet ({'|'.join(FAMILIES)})")
+        raise ValueError(
+            f"unknown family {cfg.family!r} ({'|'.join(FAMILIES)})")
 
 
 def _init_block(gen, cfg: ModelConfig, dtype, device) -> Dict:
@@ -79,7 +91,7 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     """Seeded random parameters on ``device`` (default: the GPU). The
     numbers differ from the reference's init; tests that compare the
     two convert the reference's params with ``convert.params_from_numpy``."""
-    require_ported_family(cfg)
+    require_known_family(cfg)
     dev = resolve_device(device)
     gen = generator(dev, seed)
     dtype = cfg.param_dtype
@@ -89,10 +101,14 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         x = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
         return (x * 0.02).to(dtype)
 
-    params: Dict = {"final_norm": init_norm(cfg.d_model, dtype, dev),
-                    "embed": emb((v, cfg.d_model)),
-                    "head": emb((cfg.d_model, v))}
-    if cfg.family in ("dense", "moe"):
+    params: Dict = {"final_norm": init_norm(cfg.d_model, dtype, dev)}
+    if cfg.family == "audio":
+        params["embed"] = emb((cfg.num_codebooks, v, cfg.d_model))
+        params["head"] = emb((cfg.d_model, cfg.num_codebooks * v))
+    else:
+        params["embed"] = emb((v, cfg.d_model))
+        params["head"] = emb((cfg.d_model, v))
+    if cfg.family in ("dense", "moe", "audio", "vlm"):
         params["layers"] = {str(i): _init_block(gen, cfg, dtype, dev)
                             for i in range(cfg.num_layers)}
     elif cfg.family == "ssm":
@@ -230,26 +246,55 @@ class QATLevels(NamedTuple):
     top_acts: Dict[str, torch.Tensor]
 
 
+def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Token ids (B, S) -> (B, S, D); the audio family's (B, S, CB) grids
+    sum one embedding a codebook, from zero and in codebook order, in the
+    param dtype (the reference's order of additions)."""
+    tokens = tokens.long()
+    if cfg.family != "audio":
+        return params["embed"][tokens]
+    emb = params["embed"]
+    x = torch.zeros(tokens.shape[:2] + (cfg.d_model,), dtype=emb.dtype,
+                    device=emb.device)
+    for cb in range(cfg.num_codebooks):
+        x = x + emb[cb][tokens[..., cb]]
+    return x
+
+
 def embed_inputs(params, inputs: Dict[str, torch.Tensor], cfg: ModelConfig,
                  ctx) -> torch.Tensor:
-    x = params["embed"][inputs["tokens"].long()]
+    """Token/frontend embedding -> (B, S, D); the vlm family's image
+    patches come first."""
+    x = embed_tokens(params, inputs["tokens"], cfg)
+    if cfg.family == "vlm":
+        img = ctx.tap("image_embed", inputs["image_embed"].to(x.dtype))
+        x = torch.cat([img, x], dim=1)
     return ctx.tap("embed_out", x)
+
+
+def split_codebooks(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The audio head's (B, S, CB·V) logits -> (B, S, CB, V); other
+    families' logits as they are."""
+    if cfg.family != "audio":
+        return logits
+    b, s, _ = logits.shape
+    return logits.reshape(b, s, cfg.num_codebooks, vocab_padded(cfg))
 
 
 def logits_from_hidden(params, x, cfg: ModelConfig, ctx) -> torch.Tensor:
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return ctx.matmul("head", x, params["head"])
+    return split_codebooks(ctx.matmul("head", x, params["head"]), cfg)
 
 
 def forward(params, inputs: Dict[str, torch.Tensor], cfg: ModelConfig,
             ctx: Optional[Context] = None, qat: Optional[QATLevels] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(logits (B, S, V_padded), MoE aux loss summed over layers) of the
-    unrolled forward. ``ctx`` runs every layer under its block scope
+    """(logits (B, S, V_padded) — (B, S, CB, V_padded) for audio —, MoE
+    aux loss summed over layers) of the unrolled forward. ``ctx`` runs every layer under its block scope
     (``layers/<i>``; the hybrid's ``shared/<g>``, ``groups/<g>/<i>``,
     ``rest/<i>``); otherwise ``qat`` gives each layer its own
     ``QATContext`` (no ``qat``: the plain forward)."""
-    require_ported_family(cfg)
+    require_known_family(cfg)
     layer_ctx = None
     if ctx is None and qat is not None:
         ctx = QATContext(qat.top_weights, qat.top_acts)
@@ -286,8 +331,7 @@ def forward(params, inputs: Dict[str, torch.Tensor], cfg: ModelConfig,
         if layer_ctx is not None:
             x, da = _attn_mlp_block(x, bp, cfg, layer_ctx(i))
         else:
-            with ctx.scope(f"layers/{i}"):
-                x, da = _attn_mlp_block(x, bp, cfg, ctx)
+            x, da = _block(_attn_mlp_block, x, bp, cfg, ctx, f"layers/{i}")
         aux = aux + da
     return logits_from_hidden(params, x, cfg, ctx), aux
 
@@ -296,7 +340,8 @@ def loss_fn(params, inputs: Dict[str, torch.Tensor], cfg: ModelConfig,
             ctx: Optional[Context] = None, qat: Optional[QATLevels] = None,
             aux_weight: float = 0.01) -> torch.Tensor:
     """Mean next-token cross-entropy plus ``aux_weight`` times the MoE
-    aux loss; the padded vocab is masked. The CE stays in the logits
+    aux loss (audio: over every (position, codebook) label of the
+    (B, S, CB) grid); the padded vocab is masked. The CE stays in the logits
     dtype, with fp32 only inside exp and the sum."""
     logits, aux = forward(params, inputs, cfg, ctx=ctx, qat=qat)
     labels = inputs["labels"].long()

@@ -27,11 +27,11 @@ stream equals the reference engine's), self-speculative decoding
 paged KV, prefix sharing and copy-on-write, chunked prefill interleaved
 with decode, page-table growth, eviction and backfill, admission
 deferral when the page pool is full; packed QTensor and int8-backed
-(path-keyed ``scales``) weights; the dense, MoE, ssm and hybrid families
-(MoE expert stacks through ``grouped_qmm``, or the per-expert ``qmm``
-loop or the fp einsum, by ``moe_dispatch``). On the MoE path the row
-independence above stops at the experts' capacity, which couples a
-token to its batch-mates as it does in the reference.
+(path-keyed ``scales``) weights; every family: dense, MoE, ssm, hybrid,
+audio and vlm (MoE expert stacks through ``grouped_qmm``, or the
+per-expert ``qmm`` loop or the fp einsum, by ``moe_dispatch``). On the
+MoE path the row independence above stops at the experts' capacity,
+which couples a token to its batch-mates as it does in the reference.
 
 The recurrent families (ssm, hybrid) carry an SSM state a slot beside
 (hybrid) or instead of (ssm) the KV cache: admission overwrites the
@@ -43,6 +43,13 @@ page; the hybrid serves without prefix sharing (a shared prefix would
 also need the SSM state at the split point, which is not cached); and
 neither takes speculative decoding (a recurrent state cannot rewind
 rejected drafts), as in the reference.
+
+The audio family serves (P, CB) codebook grids: the slots' tokens are
+(S, 1, CB), a request's output (G, CB), each codebook sampled under the
+token's one key, and a speculative draft matches only where every
+codebook does; a prompt shares a prefix with another only where every
+codebook agrees. The vlm family serves text prompts, as the reference's
+requests carry no image.
 
 Sampled bursts specialize the sampler to what the active requests need
 (``_mode_for``: ``greedy``, ``nofilter`` or ``full``); a row samples the
@@ -82,9 +89,8 @@ bursts and at run end (``counters``) — a burst adds no host read of its
 own; dispatch walls with CUDA-event device time (``perf``); and a FIT
 drift monitor's cadenced probe after the bursts (``attach_drift``).
 
-Not yet ported (raise ``NotImplementedError``): speculative decoding
-under a mesh (refused by the reference too) and the audio and vlm
-families.
+Not yet ported (raises ``NotImplementedError``): speculative decoding
+under a mesh (refused by the reference too).
 """
 from __future__ import annotations
 
@@ -111,7 +117,7 @@ from repro_torch.models.context import (
 from repro_torch.models.decode import (
     DecodeState, decode_step, init_decode_state, init_paged_decode_state,
     insert_ssm_slot, prefill_into, state_insert_slot)
-from repro_torch.models.transformer import require_ported_family
+from repro_torch.models.transformer import require_known_family
 from repro_torch.obs import DeviceCounters, ObsConfig, Tracer, init_counters
 from repro_torch.obs import runtime as obs_rt
 from repro_torch.obs.perf.timing import DeviceSpan, DispatchTimer
@@ -173,7 +179,7 @@ def _check_supported(cfg: ModelConfig, ecfg: EngineConfig) -> None:
         raise ValueError(
             f"EngineConfig.mesh must be a TPMesh (got {type(ecfg.mesh).__name__})"
             " — build it with repro_torch.launch.mesh.make_tp_mesh")
-    require_ported_family(cfg)
+    require_known_family(cfg)
     if ecfg.kv_cache not in ("dense", "paged"):
         raise ValueError(f"kv_cache must be dense|paged, got {ecfg.kv_cache!r}")
     if ecfg.kv_cache == "paged" and cfg.family == "ssm":
@@ -261,6 +267,8 @@ class Engine:
                 log.info("hybrid family: prefix sharing disabled "
                          "(SSM state at the split is not cached)")
         self._share = ecfg.prefix_sharing and cfg.family != "hybrid"
+        # a slot's token: () or the audio family's (CB,) codebooks
+        self._cb = (cfg.num_codebooks,) if cfg.family == "audio" else ()
         # ---- observability (all off by default; see repro_torch.obs) ----
         obs = ecfg.obs
         self._obs: Optional[ObsConfig] = obs
@@ -433,15 +441,20 @@ class Engine:
     def _sample(self, logits: torch.Tensor, mode: str,
                 token_idx: Optional[torch.Tensor],
                 rows: slice = slice(None)) -> torch.Tensor:
-        """(R, V) logits of the slots ``rows`` -> (R,) int32 tokens;
-        ``token_idx`` (R,) is the index of the token each samples (its
-        key)."""
+        """(R[, CB], V) logits of the slots ``rows`` -> (R[, CB]) int32
+        tokens; ``token_idx`` (R,) is the index of the token each samples
+        (its key)."""
         if mode == "greedy":
             return greedy_tokens(logits)
         return sample_tokens(logits, request_keys(self._seeds[rows], token_idx),
                              self._temps[rows], self._top_ks[rows],
                              self._top_ps[rows],
                              skip_filters=mode == "nofilter")
+
+    def _per_token(self, t: torch.Tensor) -> torch.Tensor:
+        """A per-slot (S,) tensor shaped (S, 1[, 1]) to broadcast against
+        the slots' (S, 1[, CB]) tokens."""
+        return t.reshape((-1, 1) + (1,) * len(self._cb))
 
     def _now(self) -> float:
         if self.ecfg.clock == "wall":
@@ -463,7 +476,8 @@ class Engine:
         ecfg, S = self.ecfg, self.ecfg.max_slots
         dev = self.device
         self._state = self._fresh_state()
-        self._tok = torch.zeros((S, 1), dtype=torch.int32, device=dev)
+        self._tok = torch.zeros((S, 1) + self._cb, dtype=torch.int32,
+                                device=dev)
         # per-slot sampling tables, written at admission
         self._seeds = torch.zeros(S, dtype=torch.int32, device=dev)
         self._temps = torch.zeros(S, dtype=torch.float32, device=dev)
@@ -477,9 +491,10 @@ class Engine:
         self._dbudget = torch.zeros(S, dtype=torch.int64, device=dev)
         if self._spec is not None:
             self._dstate = self._fresh_draft_state(self._state)
-            self._ptok = torch.zeros((S, 1), dtype=torch.int32, device=dev)
+            self._ptok = torch.zeros((S, 1) + self._cb, dtype=torch.int32,
+                                     device=dev)
         self.spec_stats = {"proposed": 0, "accepted": 0, "dispatches": 0}
-        self._out = np.zeros((S, ecfg.max_new_tokens), np.int32)
+        self._out = np.zeros((S, ecfg.max_new_tokens) + self._cb, np.int32)
         self._slots: List[Optional[Request]] = [None] * S
         self._active = np.zeros(S, bool)
         self._nwritten = np.zeros(S, np.int64)
@@ -684,7 +699,8 @@ class Engine:
         self._top_ks[slot] = s.top_k
         self._top_ps[slot] = s.top_p
         # the first token: the key of token index 0
-        tok0 = self._sample(logits[:, -1, :cfg.vocab_size], self._mode_for([s]),
+        tok0 = self._sample(logits[:, -1, ..., :cfg.vocab_size],
+                            self._mode_for([s]),
                             torch.zeros(1, dtype=torch.int64, device=self.device),
                             rows=slice(slot, slot + 1))
         st = self._state
@@ -720,7 +736,7 @@ class Engine:
             self._insert_draft(req, slot, pstate, shared_len, partial_src,
                                row, gather_ids)
         self._tok[slot] = tok0
-        self._out[slot, 0] = int(tok0.item())
+        self._out[slot, 0] = tok0.cpu().numpy()[0]
         self._dactive[slot] = True
         self._dnw[slot] = 1
         self._dbudget[slot] = req.max_new_tokens
@@ -765,7 +781,8 @@ class Engine:
                 quantize_dense_kv(pstate.kv.v, dkb)))
             state_insert_slot(self.cfg, dst, sub, slot)
         # the catch-up pair's first element: the last prompt token
-        self._ptok[slot] = int(np.asarray(req.prompt)[-1])
+        self._ptok[slot] = torch.as_tensor(
+            np.asarray(req.prompt, np.int32)[-1:]).to(self.device)
 
     # ------------------------------------------------------------------
     def _grow_tables(self, steps: int) -> None:
@@ -806,6 +823,7 @@ class Engine:
         n_active = int(self._active.sum())
         mode = self._active_mode()
         active, nw = self._dactive, self._dnw
+        act_tok = self._per_token(active)
         tr = self.tracer
         timed = tr.enabled or self.perf is not None
         sid = tr.begin("decode_burst", cat="decode", tid=ENGINE_TID) \
@@ -818,9 +836,9 @@ class Engine:
         for i in range(steps):
             logits, new = self._decode(sink, self.params, state, tok, self._ctx)
             state = new._replace(pos=torch.where(active, new.pos, state.pos))
-            nxt = self._sample(logits[:, 0, :cfg.vocab_size], mode,
+            nxt = self._sample(logits[:, 0, ..., :cfg.vocab_size], mode,
                                None if mode == "greedy" else nw + i)
-            tok = torch.where(active[:, None], nxt[:, None], tok)
+            tok = torch.where(act_tok, nxt[:, None], tok)
             ys.append(nxt)
         ys = torch.stack(ys)
         # the device slot table advances as the output scatter clamps:
@@ -888,7 +906,7 @@ class Engine:
         n_active = int(self._active.sum())
         mode = self._active_mode()
         active, nw, budget = self._dactive, self._dnw, self._dbudget
-        act_tok = active[:, None]
+        act_tok = self._per_token(active)
         state, dstate, tok = self._state, self._dstate, self._tok
         tr = self.tracer
         timed = tr.enabled or self.perf is not None
@@ -906,30 +924,33 @@ class Engine:
 
         # ---- draft: k proposals from k invocations ----
         lg2, dst = draft_step(dstate, torch.cat([self._ptok, tok], dim=1))
-        drafts = [self._sample(lg2[:, 1, :V], mode, nw)]
+        drafts = [self._sample(lg2[:, 1, ..., :V], mode, nw)]
         dtok = torch.where(act_tok, drafts[0][:, None], tok)
         for i in range(1, k):
             lg, dst = draft_step(dst, dtok)
-            drafts.append(self._sample(lg[:, 0, :V], mode, nw + i))
+            drafts.append(self._sample(lg[:, 0, ..., :V], mode, nw + i))
             dtok = torch.where(act_tok, drafts[-1][:, None], dtok)
-        drafts = torch.stack(drafts, dim=1)                    # (S, k)
+        drafts = torch.stack(drafts, dim=1)                    # (S, k[, CB])
 
         # ---- verify: one (k+1)-token forward of the serving config ----
         logits, vnew = self._decode(sink, self.params, state,
                                     torch.cat([tok, drafts], dim=1),
                                     self._ctx)
-        tgt = torch.stack([self._sample(logits[:, i, :V], mode, nw + i)
-                           for i in range(k + 1)], dim=1)      # (S, k+1)
+        tgt = torch.stack([self._sample(logits[:, i, ..., :V], mode, nw + i)
+                           for i in range(k + 1)], dim=1)      # (S, k+1[, CB])
         n_emit, n_match = accept_drafts(drafts, tgt, active, nw, budget)
 
         # next input: the last emitted token; the catch-up pair's first
         # element: the one before it (the old input when one was emitted);
         # both frozen where nothing was emitted
-        last = torch.gather(tgt, 1, torch.clamp_min(n_emit - 1, 0)[:, None])
-        before = torch.gather(tgt, 1, torch.clamp_min(n_emit - 2, 0)[:, None])
-        emitted = (n_emit > 0)[:, None]
+        def column(back):
+            idx = self._per_token(torch.clamp_min(n_emit - back, 0))
+            return torch.gather(tgt, 1, idx.expand((-1, 1) + self._cb))
+
+        last, before = column(1), column(2)
+        emitted = self._per_token(n_emit > 0)
         self._ptok = torch.where(
-            emitted, torch.where((n_emit >= 2)[:, None], before, tok),
+            emitted, torch.where(self._per_token(n_emit >= 2), before, tok),
             self._ptok).to(torch.int32)
         self._tok = torch.where(emitted, last, tok).to(torch.int32)
         # rollback: both lanes rewind to P + n_emit; rejected KV writes
@@ -946,12 +967,13 @@ class Engine:
             self._count_dispatch(sink, k + 1)
         nw += n_emit
 
-        host = torch.cat([n_emit[:, None], tgt.to(n_emit.dtype)], dim=1)
+        host = torch.cat([n_emit[:, None],
+                          tgt.reshape(tgt.shape[0], -1).to(n_emit.dtype)], dim=1)
         if span is not None:
             span.stop()
         host = host.cpu().numpy()                 # the one host read
         wall = time.perf_counter() - t0
-        ne, tgt_h = host[:, 0], host[:, 1:]
+        ne, tgt_h = host[:, 0], host[:, 1:].reshape(tgt.shape)
         for b in np.flatnonzero(self._active):
             n0 = self._nwritten[b]
             self._out[b, n0:n0 + ne[b]] = tgt_h[b, :ne[b]]
@@ -980,7 +1002,9 @@ class Engine:
             done = count >= self._budget[b]
             toks = self._out[b, :count].copy()
             if req.eos_id is not None:
-                hits = np.flatnonzero(toks == req.eos_id)
+                # audio: the first codebook carries the end of stream
+                flat = toks if toks.ndim == 1 else toks[:, 0]
+                hits = np.flatnonzero(flat == req.eos_id)
                 if hits.size:
                     toks = toks[:hits[0] + 1]
                     done = True

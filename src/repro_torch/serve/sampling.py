@@ -119,25 +119,30 @@ def sample_tokens(logits: torch.Tensor, keys: torch.Tensor,
                   ) -> torch.Tensor:
     """Sample one token per slot.
 
-    logits: (B, V); keys: (B, 2) from ``request_keys``;
-    temperature/top_k/top_p: (B,). Returns int32 (B,).
+    logits: (B, V) — or (B, CB, V) for the audio family, whose codebooks
+    sample independently under one key (the row's noise is Threefry over
+    the counters 0..CB·V-1, as the reference draws a (CB, V) categorical);
+    keys: (B, 2) from ``request_keys``; temperature/top_k/top_p: (B,).
+    Returns int32 (B,) (or (B, CB)).
 
     ``skip_filters=True`` elides the sort-based top-k/top-p masks; a row
     with ``top_k <= 0, top_p >= 1`` samples the same either way, so a
     filterless request batched with filtered ones keeps its tokens.
     """
     v = logits.shape[-1]
+    # per-slot values broadcast against (B[, CB], V) and (B[, CB])
+    shape1 = (logits.shape[0],) + (1,) * (logits.ndim - 1)
     lg32 = logits.to(torch.float32)
-    greedy = temperature <= 0.0
-    t = torch.clamp_min(temperature.to(torch.float32), 1e-6)[:, None]
+    greedy = (temperature <= 0.0).reshape(shape1[:-1])
+    t = torch.clamp_min(temperature.to(torch.float32), 1e-6).reshape(shape1)
     lg = lg32 / t
 
     if not skip_filters:
         # top-k: keep entries >= the k-th largest value of the row
         desc = torch.sort(lg, dim=-1, descending=True).values
-        k_idx = torch.clamp(top_k.to(torch.int64) - 1, 0, v - 1)[:, None]
-        kth = torch.gather(desc, -1, k_idx)
-        k_on = (top_k > 0)[:, None]
+        k_idx = torch.clamp(top_k.to(torch.int64) - 1, 0, v - 1).reshape(shape1)
+        kth = torch.gather(desc, -1, k_idx.expand(desc.shape[:-1] + (1,)))
+        k_on = (top_k > 0).reshape(shape1)
         lg = torch.where(k_on & (lg < kth), torch.full_like(lg, NEG), lg)
 
         # top-p: the smallest prefix of the descending distribution whose
@@ -146,14 +151,15 @@ def sample_tokens(logits: torch.Tensor, keys: torch.Tensor,
         probs = torch.softmax(lg, dim=-1)
         p_desc = torch.sort(probs, dim=-1, descending=True).values
         csum = torch.cumsum(p_desc, dim=-1)
-        p_eff = torch.clamp_min(top_p.to(torch.float32), 1e-9)[:, None]
+        p_eff = torch.clamp_min(top_p.to(torch.float32), 1e-9).reshape(shape1)
         keep_sorted = (csum - p_desc) < p_eff
         thresh = torch.amin(torch.where(keep_sorted, p_desc,
                                         torch.full_like(p_desc, float("inf"))),
                             dim=-1, keepdim=True)
         lg = torch.where(probs < thresh, torch.full_like(lg, NEG), lg)
 
-    sampled = torch.argmax(lg + gumbel(keys, v), dim=-1)
+    noise = gumbel(keys, lg[0].numel()).reshape(lg.shape)
+    sampled = torch.argmax(lg + noise, dim=-1)
     return torch.where(greedy, torch.argmax(lg32, dim=-1),
                        sampled).to(torch.int32)
 

@@ -154,18 +154,21 @@ def accept_drafts(drafts: torch.Tensor, targets: torch.Tensor,
                   budget: torch.Tensor):
     """Vectorized coupled-rejection accept.
 
-    drafts: (S, k) draft tokens d_1..d_k; targets: (S, k+1) the verify
-    pass's re-sampled tokens t_0..t_k (t_i is what the non-speculative
-    engine samples at index nwritten+i); active (S,) bool;
-    nwritten/budget (S,) integers.
+    drafts: (S, k[, CB]) draft tokens d_1..d_k; targets: (S, k+1[, CB])
+    the verify pass's re-sampled tokens t_0..t_k (t_i is what the
+    non-speculative engine samples at index nwritten+i); active (S,)
+    bool; nwritten/budget (S,) integers. An audio position matches only
+    if every codebook does.
 
     Returns ``(n_emit, n_match)``: ``n_match`` is the matched prefix
     length a (0..k); ``n_emit = min(a + 1, budget - nwritten)`` tokens —
     the matched prefix plus the correction-or-bonus token, clamped to
     the slot's remaining output budget — and 0 for inactive slots.
     """
-    k = drafts.shape[1]
+    s, k = drafts.shape[:2]
     match = drafts == targets[:, :k]
+    if match.ndim > 2:                       # audio codebooks: all must match
+        match = match.reshape(s, k, -1).all(dim=-1)
     run = torch.cumprod(match.to(torch.int64), dim=1)
     n_match = torch.sum(run, dim=1)                         # (S,) 0..k
     room = torch.clamp_min(budget - nwritten, 0)

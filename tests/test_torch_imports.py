@@ -144,8 +144,6 @@ def test_train_cli_help_loads_neither_jax_nor_repro():
 # public names of a reference package that wait for a later queue item
 # (ROADMAP § A), by package
 WAITING = {"analysis": {"Finding", "RULES", "Report", "run_all"}}      # A8
-# the reference's architectures whose families the port does not run yet (A3)
-WAITING_ARCHS = {"musicgen_large": "audio", "phi3_vision_4_2b": "vlm"}
 
 
 def _public(mod, root: str) -> set:
@@ -176,16 +174,16 @@ def test_package_exports_equal_reference(pkg):
 
 
 def test_configs_follow_reference():
-    """``ARCH_IDS`` holds the reference's ids in its order, less the
-    families that wait for A3; every ported config equals the reference's
-    field by field; the dashed aliases, ``SHAPES`` and ``cells`` agree."""
+    """``ARCH_IDS`` holds the reference's ten ids in its order; every
+    config equals the reference's field by field; the dashed aliases,
+    ``SHAPES`` and ``cells`` agree."""
     import dataclasses
 
     from repro import configs as jc
     from repro_torch import configs as tc
-    assert tc.ARCH_IDS == [a for a in jc.ARCH_IDS if a not in WAITING_ARCHS]
-    for arch, family in WAITING_ARCHS.items():
-        assert jc.get_config(arch).family == family
+    assert tc.ARCH_IDS == jc.ARCH_IDS and len(tc.ARCH_IDS) == 10
+    assert {tc.get_config(a).family for a in tc.ARCH_IDS} == \
+        {"dense", "moe", "ssm", "hybrid", "audio", "vlm"}
     for arch in tc.ARCH_IDS:
         for get in ("get_config", "smoke_config"):
             t, j = getattr(tc, get)(arch), getattr(jc, get)(arch)
@@ -194,4 +192,4 @@ def test_configs_follow_reference():
     assert list(tc.all_configs()) == tc.ARCH_IDS
     assert {k: dataclasses.astuple(v) for k, v in tc.SHAPES.items()} == \
         {k: dataclasses.astuple(v) for k, v in jc.SHAPES.items()}
-    assert tc.cells() == [c for c in jc.cells() if c[0] in tc.ARCH_IDS]
+    assert tc.cells() == jc.cells()

@@ -139,7 +139,8 @@ def test_unsupported_engine_options_raise(packed, bad):
 
 def test_sampled_decoding_and_other_families_raise(packed):
     """Sampled decoding runs (its tokens in the vocab, the same on a
-    second run); the audio family still raises."""
+    second run); a family the model does not know is refused with the
+    reference's error type (``ValueError``)."""
     _, _, tcfg, tq = packed
     eng = TEngine(tq, tcfg, TEngineConfig(**ECFG), device="cpu")
 
@@ -151,6 +152,6 @@ def test_sampled_decoding_and_other_families_raise(packed):
     assert a[0].num_generated == 4
     assert ((a[0].output_tokens >= 0) & (a[0].output_tokens < tcfg.vocab_size)).all()
     np.testing.assert_array_equal(a[0].output_tokens, b[0].output_tokens)
-    audio = ModelConfig(name="m", family="audio", num_layers=1, d_model=8)
-    with pytest.raises(NotImplementedError):
-        TEngine(tq, audio, TEngineConfig(), device="cpu")
+    unknown = ModelConfig(name="m", family="foo", num_layers=1, d_model=8)
+    with pytest.raises(ValueError, match="foo"):
+        TEngine(tq, unknown, TEngineConfig(), device="cpu")
