@@ -27,8 +27,8 @@ Phases, in order; any failure exits non-zero:
      against the CPU plain path;
   3b. drive each main path at full width — internlm2_1_8b,
      llama3_8b, phi3_mini_3_8b and minitron_4b (dense), olmoe_1b_7b and
-     deepseek_moe_16b (MoE, grouped_qmm); each but minitron (full depth)
-     cut to PATH_LAYERS = 8 layers —
+     deepseek_moe_16b (MoE, grouped_qmm); each cut to PATH_LAYERS = 8
+     layers —
      seeded init -> FIT report
      (its peak memory within 1.3 x the parameter bytes + 2 GB; for
      internlm2_1_8b again on a two-shard data-parallel mesh, equal within
@@ -78,6 +78,14 @@ Phases, in order; any failure exits non-zero:
      drift monitor at full width and 4 layers, quiet when calibrated and
      flagging 3x stale calibration; the profiling CLI in a subprocess;
      the decode step with and without obs, in turns;
+  3l. (run right after 3i, on 3b's params) the static-analysis passes on
+     the card: lint, the accumulator bounds and every dispatch target
+     (the kernel wrappers, each engine variant's admission and burst
+     step) under set_sync_debug_mode, no error; then 3b's internlm2_1_8b
+     engine serves 3b's requests (streams == 3b's) with every
+     synchronizing call counted by source line and split into: inside
+     Engine._engine_step (none), the bursts' audited fetches (one a
+     burst), admission and prefill, and the rest;
   3h. FIT against the Hessian: internlm2_1_8b at full width and 4
      layers, one batch of 4 x 128: the EF traces and Hutchinson's
      per-block Hessian traces (8 probes, fp32, seeded), each timed, their
@@ -1258,9 +1266,16 @@ def main() -> int:
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         result["obs_path"] = op = obs_path(kept)
-        del kept
         log(f"phase 3i: observability in {time.perf_counter() - t0:.1f} s")
         log(json.dumps({"obs_path": op}))
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        result["analysis_path"] = ap = analysis_path(kept)
+        del kept
+        log(f"phase 3l: static analysis and the step's syncs in "
+            f"{time.perf_counter() - t0:.1f} s")
+        log(json.dumps({"analysis_path": ap}))
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -1425,6 +1440,7 @@ def main() -> int:
         f"{hp['spearman']:.4f}")
     log_recurrent(card, rp)
     log_families(card, fp, tb)
+    log_analysis(card, ap)
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -1519,19 +1535,18 @@ SMOKE_ARCHS = ("internlm2_1_8b", "olmoe_1b_7b", "deepseek_moe_16b", "llama3_8b",
                "phi3_mini_3_8b", "minitron_4b", "mamba2_130m", "zamba2_7b",
                "musicgen_large", "phi3_vision_4_2b")
 # full-width main paths (arch, Poisson requests, with the profiler and
-# decode-step A/B extras, layers: None for full depth), driven in this
+# decode-step A/B extras, layers), driven in this
 # order; phases 3f, 3g and 3i reuse the first two. Serving is paced by
 # the host, one decode step's launches a layer, so a path's wall grows
-# with its depth: every path but minitron is cut to PATH_LAYERS to keep
-# the script near half its time limit; minitron keeps its full depth,
-# where its report peak sits nearest the memory bound
+# with its depth: every path is cut to PATH_LAYERS to keep the script
+# near half its time limit (minitron at its 32 layers took 51-64 s)
 PATH_LAYERS = 8
 MAIN_PATHS = (("internlm2_1_8b", 8, True, PATH_LAYERS),
               ("olmoe_1b_7b", 8, True, PATH_LAYERS),
               ("llama3_8b", 8, False, PATH_LAYERS),
               ("deepseek_moe_16b", 8, False, PATH_LAYERS),
               ("phi3_mini_3_8b", 4, False, PATH_LAYERS),
-              ("minitron_4b", 4, False, None))
+              ("minitron_4b", 4, False, PATH_LAYERS))
 REUSED_PATHS = ("internlm2_1_8b", "olmoe_1b_7b")
 
 
@@ -2704,14 +2719,15 @@ def library_path(arch: str = "internlm2_1_8b", calib_batches: int = 2,
 
 
 TRAIN_LR = 1e-3        # random-init 1.8B, 2 warmup steps, bf16 master-free
+RESUME_AT = 4          # 3e's resume contract: the crash after step 4 of 6
 
 
 def train_path(arch: str = "internlm2_1_8b", steps: int = 12, batch: int = 4,
                seq: int = 512):
     """Phase 3e: QAT training (W4 weights, A8 activations) at full width
     and depth through ``launch.train.train``; then the resume contract at
-    full width and 2 layers (a crash after the step-3 checkpoint: the
-    resumed losses 3..5 equal the first run's); then the training CLI on
+    full width and 2 layers (a crash after the step-4 checkpoint: the
+    resumed losses 4..5 equal the first run's); then the training CLI on
     the smoke config in a subprocess. QAT fake-quantizes with plain ops,
     as the reference does: the path launches none of the kernels."""
     import shutil
@@ -2746,25 +2762,27 @@ def train_path(arch: str = "internlm2_1_8b", steps: int = 12, batch: int = 4,
     torch.cuda.empty_cache()
     res["profile"] = profile_training(arch, batch, seq)
 
-    # resume contract: full width, 2 layers (checkpoints of ~5 GB)
+    # resume contract: full width, 2 layers (checkpoints of ~5 GB): the
+    # first run writes step RESUME_AT's and its final one, the resumed run
+    # its final one (at ckpt_every = 3 each run also wrote step 6 twice)
     gc.collect()
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
     try:
         with cut_depth(tmod, 2):
-            kw = dict(ckpt_dir=tmp, ckpt_every=3, **qat)
+            kw = dict(ckpt_dir=tmp, ckpt_every=RESUME_AT, **qat)
             t0 = time.perf_counter()
             first = tmod.train(arch, False, 6, batch, seq, resume=False, **kw)
-            (Path(tmp) / "LATEST").write_text("step_00000003")
+            (Path(tmp) / "LATEST").write_text(f"step_{RESUME_AT:08d}")
             again = tmod.train(arch, False, 6, batch, seq, resume=True, **kw)
             res["resume"] = {"layers": 2, "first": first["losses"],
                              "resumed": again["losses"],
                              "wall_s": time.perf_counter() - t0,
                              "ckpt_bytes": sum(f.stat().st_size for f in
                                                Path(tmp).rglob("arrays.npz"))}
-            if again["losses"] != first["losses"][3:]:
+            if again["losses"] != first["losses"][RESUME_AT:]:
                 raise AssertionError(f"resume: losses {again['losses']} != "
-                                     f"{first['losses'][3:]}")
+                                     f"{first['losses'][RESUME_AT:]}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     res["cli_smoke"] = run_train_cli_smoke()
@@ -2804,26 +2822,100 @@ OBS_REQUESTS = 4        # phase 3i: the 4 shortest of 3b's internlm2 requests
 OBS_DRIFT_LAYERS = 4    # depth of phase 3i's drift model (full width)
 
 
-def _sync_calls(fn):
-    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: the
-    number of synchronizing CUDA calls it made (one warning each), and
-    the count by the source line that made each."""
-    import collections
-    import linecache
-    import warnings
+ANALYSIS_TOP = 10       # phase 3l: source lines reported
+# phase 3l: a synchronizing call counts under the innermost of these
+# engine methods on its stack
+SYNC_BUCKETS = {"_engine_step": "engine_step", "_spec_step": "engine_step",
+                "_admit": "admission", "_grow_tables": "rest",
+                "_record_burst": "rest", "_harvest": "rest",
+                "_burst": "burst_fetch", "_spec_burst": "burst_fetch"}
 
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    hits = [w for w in caught if "synchroniz" in str(w.message)]
-    where = collections.Counter(
-        f"{Path(w.filename).parent.name}/{Path(w.filename).name}:{w.lineno} "
-        + linecache.getline(w.filename, w.lineno).strip() for w in hits)
-    return len(hits), dict(where)
+
+def analysis_path(kept: dict) -> dict:
+    """Phase 3l: the static-analysis passes on the card, then the
+    synchronizing calls of one full-width serving run by source line.
+
+      * ``run_all(device=cuda:0)``: lint, the accumulator bounds, and
+        every dispatch target on the card (each hot target under
+        ``set_sync_debug_mode("warn")``: RPR103 on any synchronizing call
+        inside ``Engine._engine_step`` / ``_spec_step``); any error fails;
+      * 3b's internlm2_1_8b engine (packed weights, paged KV at FIT
+        widths, 4 slots, step clock) serves 3b's 8 requests, streams ==
+        3b's; every synchronizing call is counted by line and by where it
+        sits: inside ``_engine_step`` (must be 0), the bursts' audited
+        fetch (one a burst), admission and prefill, the rest."""
+    from repro_torch.analysis import run_all
+    from repro_torch.analysis.dispatch_check import sync_calls
+    from repro_torch.serve.engine import Engine
+
+    res = {"seconds": {}}
+    t0 = time.perf_counter()
+    stats: dict = {}
+    rep = run_all(device=torch.device("cuda", 0), stats=stats)
+    res["seconds"]["run_all"] = time.perf_counter() - t0
+    if rep.errors:
+        raise AssertionError("3l: analysis errors:\n" + "\n".join(
+            f.render() for f in rep.errors))
+    hot = {name: st["syncs"] for name, st in stats.items() if st["hot"]}
+    if any(hot.values()):
+        raise AssertionError(f"3l: synchronizing calls in hot targets: {hot}")
+    res["findings"] = {"errors": 0, "warnings": len(rep.warnings),
+                       "notes": len(rep.findings) - len(rep.warnings)}
+    res["targets"] = stats
+
+    t0 = time.perf_counter()
+    k = kept["internlm2_1_8b"]
+    cfg = k["cfg"]
+    engine = Engine(tree_to(k["qparams"], "cuda"), cfg,
+                    dataclasses.replace(k["ecfg"], clock="steps"),
+                    kv_bits=k["kv_bits"], kv_ranges=k["ranges"])
+    bursts = [0]
+    burst = engine._burst
+
+    def counted(steps):
+        bursts[0] += 1
+        burst(steps)
+
+    engine._burst = counted
+    out = {}
+    torch.cuda.synchronize()
+    n, by_line, by_bucket = sync_calls(
+        lambda: out.update(zip(("fin", "metrics"), engine.run(k["requests"]()))),
+        SYNC_BUCKETS)
+    if [r.output_tokens.tolist() for r in out["fin"]] != k["streams"]:
+        raise AssertionError("3l: the streams differ from 3b's")
+    m = out["metrics"]
+    split = {"engine_step": by_bucket.get("engine_step", 0),
+             "burst_fetch": by_bucket.get("burst_fetch", 0),
+             "admission": by_bucket.get("admission", 0),
+             "rest": by_bucket.get("rest", 0) + by_bucket.get("other", 0)}
+    res["sync_calls"] = dict(split, total=n, bursts=bursts[0],
+                             top_lines=dict(sorted(
+                                 by_line.items(), key=lambda kv: -kv[1]
+                             )[:ANALYSIS_TOP]))
+    res["ms_per_step"] = 1e3 * m.decode_s / max(m.decode_steps, 1)
+    res["decode_steps"] = m.decode_steps
+    res["layers"] = cfg.num_layers
+    res["seconds"]["serve"] = time.perf_counter() - t0
+    if split["engine_step"] or split["burst_fetch"] != bursts[0]:
+        raise AssertionError(f"3l: synchronizing calls {res['sync_calls']}: "
+                             "want none in _engine_step and one fetch a burst")
+    return res
+
+
+def log_analysis(card: str, ap: dict) -> None:
+    """Phase 3l's summary lines."""
+    sc = ap["sync_calls"]
+    hot = [name for name, st in ap["targets"].items() if st["hot"]]
+    log(f"[{card}] 3l analysis: 0 errors, {ap['findings']['warnings']} "
+        f"warnings; {len(hot)} hot targets with 0 synchronizing calls; "
+        f"internlm2_1_8b ({ap['layers']} layers) serve of 3b's requests: "
+        f"{sc['total']} synchronizing calls: _engine_step {sc['engine_step']}, "
+        f"burst fetches {sc['burst_fetch']} ({sc['bursts']} bursts), "
+        f"admission {sc['admission']}, rest {sc['rest']}; "
+        f"{ap['ms_per_step']:.1f} ms a step")
+    log(f"[{card}] 3l synchronizing calls by line: " + "; ".join(
+        f"{n} {line}" for line, n in sc["top_lines"].items()))
 
 
 def obs_path(kept: dict) -> dict:
@@ -2854,6 +2946,7 @@ def obs_path(kept: dict) -> dict:
       * the decode step with obs off, counters, counters with clip
         statistics every burst and full profiling, in turns (printed, no
         gate: the host's spread exceeds them)."""
+    from repro_torch.analysis.dispatch_check import sync_calls
     from repro_torch.obs import (
         GAUGE_HELP, ObsConfig, parse, render, snapshot, validate_chrome_trace)
     from repro_torch.serve.engine import Engine
@@ -2881,7 +2974,7 @@ def obs_path(kept: dict) -> dict:
     full = ObsConfig(trace=True, device_metrics=True, perf=True, drain_every=2)
     eng = Engine(qp, cfg, dataclasses.replace(ecfg, obs=full), **kw)
     out = {}
-    syncs_on, where_on = _sync_calls(
+    syncs_on, where_on, _ = sync_calls(
         lambda: out.update(observed_run(res, "obs", eng, requests())))
     want = {i: k["streams"][i] for i in ids}
     if out["streams"] != want:
@@ -2895,9 +2988,9 @@ def obs_path(kept: dict) -> dict:
 
     off = Engine(qp, cfg, ecfg, **kw)
     # the observed run's synchronize() calls, around the same work
-    syncs_off, where_off = _sync_calls(lambda: (torch.cuda.synchronize(),
-                                                off.run(requests()),
-                                                torch.cuda.synchronize()))
+    syncs_off, where_off, _ = sync_calls(lambda: (torch.cuda.synchronize(),
+                                                  off.run(requests()),
+                                                  torch.cuda.synchronize()))
     res["sync_calls"] = {"obs": syncs_on, "off": syncs_off,
                          "drains": eng.counters.n_drains,
                          "added_by_line": {k: v - where_off.get(k, 0)

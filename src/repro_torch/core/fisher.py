@@ -143,6 +143,9 @@ def _ef_trace_weights_sharded(loss_fn: LossFn, params: Any, batch: Any,
         sq = per_sample_sqnorms(loss_fn, replicas[dev], shard)
         names = list(sq)
         parts.append(torch.stack([torch.sum(sq[k]) for k in names]))
+    # not a serving path: the mesh= report's contract is fp32 adds in
+    # shard order, within 1e-5 of the report without a mesh
+    # rpr-ok: RPR002 data-parallel EF sums, fp32 in shard order
     sums = mesh.psum(parts).tolist()
     return {k: v / n for k, v in zip(names, sums)}
 

@@ -96,5 +96,7 @@ def exact_block_traces(loss_fn: LossFn, params: Any, batch: Any
         gf = g.reshape(-1)
         diag = [_grad_of(gf[i], [leaf], retain_graph=True)[0].reshape(-1)[i]
                 for i in range(gf.numel())]
+        # tiny models and tests only; no kernel or serving path
+        # rpr-ok: RPR003 the exact trace's host-side fold
         out[name] = float(torch.sum(torch.stack(diag).to(torch.float64)))
     return out

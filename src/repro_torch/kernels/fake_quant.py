@@ -123,6 +123,7 @@ def fake_quant(x: torch.Tensor, scale, zero_point, bits: int,
     ``levels``: the largest grid index (default 2^bits − 1). Returns x's
     shape and dtype. A CPU tensor takes the plain version; a CUDA tensor
     one of the two kernels."""
+    # rpr-ok: RPR004 levels is a python number (a grid size), not a tensor
     lv = 2.0 ** bits - 1.0 if levels is None else float(levels)
     dev = x.device
     s = torch.as_tensor(scale, dtype=torch.float32, device=dev)
@@ -183,7 +184,8 @@ def clip_stats(x: torch.Tensor, scale, zero_point, bits: int, levels=None):
     fp32 tensor on x's device, the second a Python float; scale and
     zero point may be numbers or tensors on x's device (no host copy).
     Feeds the ``fq_clip`` / ``fq_elems`` counters."""
+    # rpr-ok: RPR004 levels is a python number (a grid size), not a tensor
     lv = (2.0 ** bits - 1.0) if levels is None else float(levels)
     q = torch.round(x.to(torch.float32) / scale + zero_point)
     clipped = torch.sum((q < 0.0) | (q > lv), dtype=torch.float32)
-    return clipped, float(x.numel())
+    return clipped, float(x.numel())  # rpr-ok: RPR004 numel() is a python int

@@ -199,4 +199,5 @@ def read_token_stats(pos: torch.Tensor) -> torch.Tensor:
     """KV tokens attended by one call (the sum over the batch of pos + 1)
     — the ``paged_tokens_read`` counter's per-call increment, a 0-d fp32
     tensor on pos's device (positions are data; nothing is read back)."""
+    # rpr-ok: RPR004 numel() is a python int, added on the device
     return torch.sum(pos, dtype=torch.float32) + float(pos.numel())

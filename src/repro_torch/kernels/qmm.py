@@ -240,4 +240,4 @@ def saturation_stats(x_q: torch.Tensor):
     in {127, 128, 129}, so one wrapping uint8 subtract and one compare
     find them."""
     sat = torch.sum((x_q.view(torch.uint8) - 127) <= 2, dtype=torch.float32)
-    return sat, float(x_q.numel())
+    return sat, float(x_q.numel())  # rpr-ok: RPR004 numel() is a python int

@@ -36,6 +36,8 @@ def int8_dots(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     """Exact full-K integer dots (M, N) int32 of (M, K) int8 x (K, N)
     int8: int32 on the CPU, float64 on CUDA (exact, as in
     ``qmm_group_dots``; ``require_full_k_safe`` keeps them in int32)."""
+    # CUDA has no int32 matmul; integer dots below 2^31 are exact in fp64
+    # rpr-ok: RPR003 the plain version's exact integer dots on CUDA
     dt = torch.int32 if x_q.device.type == "cpu" else torch.float64
     return (x_q.to(dt) @ w_q.to(dt)).to(torch.int32)
 
@@ -62,6 +64,8 @@ def qmm_group_dots(x_q: torch.Tensor, w) -> torch.Tensor:
     wi = w.unpack()                                   # (K, N) int8
     g = w.scale.shape[w.axis]
     gs = k // g
+    # CUDA has no int32 matmul; integer dots below 2^31 are exact in fp64
+    # rpr-ok: RPR003 the plain version's exact integer dots on CUDA
     dt = torch.int32 if x_q.device.type == "cpu" else torch.float64
     xg = x_q.to(dt).reshape(x_q.shape[0], g, gs).transpose(0, 1)  # (G, M, gs)
     wg = wi.to(dt).reshape(g, gs, n)
@@ -118,6 +122,8 @@ def grouped_qmm_group_dots(x_q: torch.Tensor, w,
     g = w.scale.shape[w.axis]
     gs = k // g
     wsel = w.unpack()[_expert_ids(x_q, expert_ids)]   # (S, K, N) int8
+    # CUDA has no int32 matmul; integer dots below 2^31 are exact in fp64
+    # rpr-ok: RPR003 the plain version's exact integer dots on CUDA
     dt = torch.int32 if x_q.device.type == "cpu" else torch.float64
     xg = x_q.to(dt).reshape(s, c, g, gs).transpose(1, 2).reshape(s * g, c, gs)
     wg = wsel.to(dt).reshape(s * g, gs, n)
@@ -205,8 +211,9 @@ def fake_quant(x: torch.Tensor, scale, zero_point, bits: int,
     s = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
     zp = torch.as_tensor(zero_point, dtype=torch.float32, device=x.device)
     inv = 1.0 / s
-    q = torch.clamp(torch.round(x.to(torch.float32) * inv + zp), 0.0,
-                    float(levels))
+    # rpr-ok: RPR004 levels is a python number (a grid size), not a tensor
+    lv = float(levels)
+    q = torch.clamp(torch.round(x.to(torch.float32) * inv + zp), 0.0, lv)
     return ((q - zp) * s).to(x.dtype)
 
 
@@ -214,11 +221,13 @@ def clip_stats(x: torch.Tensor, scale, zero_point, bits: int, levels=None):
     """(clipped, total) fp32 element counts of one fake-quant call: how
     many grid indices ``round(x / scale + zp)`` fell outside [0, levels]
     and were clamped (the reference divides here, unlike its kernels)."""
+    # rpr-ok: RPR004 levels is a python number (a grid size), not a tensor
     lv = (2.0 ** bits - 1.0) if levels is None else float(levels)
     s = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
     zp = torch.as_tensor(zero_point, dtype=torch.float32, device=x.device)
     q = torch.round(x.to(torch.float32) / s + zp)
     clipped = torch.sum(((q < 0.0) | (q > lv)).to(torch.float32))
+    # rpr-ok: RPR004 numel() is a python int
     return clipped, torch.tensor(float(x.numel()), dtype=torch.float32,
                                  device=x.device)
 

@@ -405,6 +405,7 @@ class ShardedDequantContext(DequantContext):
 
     def _int8_row(self, xq, xs, parts, scales):
         kl = parts[0].shape[0]
+        # rpr-ok: RPR002 int32 full-K dots of disjoint K slices: integer adds are exact
         acc = self.mesh.psum(
             [_int32_dots(self._on(xq[:, i * kl:(i + 1) * kl], i), w)
              for i, w in enumerate(parts)])

@@ -57,9 +57,13 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Te
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """theta^(-2i/Dh) in fp32, built on ``device`` by device ops alone: a
+    tensor made from host data (``torch.tensor(theta, device=cuda)``)
+    would be a pageable host-to-device copy, which synchronizes, in every
+    attention layer of every decode step."""
     e = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), e)
+    base = torch.full((), theta, dtype=torch.float32, device=device)
+    return 1.0 / torch.pow(base, e)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:

@@ -38,6 +38,8 @@ class DeviceCounters:
             return {}
         t0 = time.perf_counter()
         i32, f32 = dev_ctr["i32"], dev_ctr["f32"]
+        # on the drain_every cadence and at run end
+        # rpr-ok: RPR008 the drain: the metrics layer's one host read
         raw = torch.cat([i32, f32.view(torch.int32)]).cpu().numpy()
         self.drain_s += time.perf_counter() - t0
         self.n_drains += 1

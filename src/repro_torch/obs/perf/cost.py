@@ -32,10 +32,14 @@ from repro_torch.qtensor import (
 
 # machine balance: the NVIDIA H100 SXM's published dense peaks — bf16
 # tensor-core FLOP/s, int8 tensor-core OP/s, HBM3 bandwidth in bytes/s
-# (``chip_smoke.py`` bounds its kernels with the same three numbers)
+# (``chip_smoke.py`` bounds its kernels with the same three numbers) —
+# and its NVLink 4 bandwidth in bytes/s a direction (900 GB/s both ways;
+# ``launch.roofline``'s collective term). Spec-sheet figures, not
+# measurements.
 PEAK_FLOPS = 989e12
 INT8_OPS = 1979e12
 HBM_BW = 3.35e12
+NVLINK_BW = 450e9
 
 
 @dataclasses.dataclass(frozen=True)

@@ -469,10 +469,9 @@ class Engine:
         else:
             self._ticks = max(self._ticks, int(math.ceil(t)))
 
-    # ------------------------------------------------------------------
-    def run(self, requests: Sequence[Request]
-            ) -> Tuple[List[Request], EngineMetrics]:
-        """Serve ``requests`` to completion; returns (finished, metrics)."""
+    def _start_run(self) -> None:
+        """Fresh run state: the caches, the device slot table and sampling
+        tables, the host scheduler's mirrors, metrics and counters."""
         ecfg, S = self.ecfg, self.ecfg.max_slots
         dev = self.device
         self._state = self._fresh_state()
@@ -516,6 +515,13 @@ class Engine:
         self._ctr = self._fresh_counters()
         self._ctr_host = obs_rt.init_host_counters() if self._ctr else {}
         self._burst_i = 0
+
+    # ------------------------------------------------------------------
+    def run(self, requests: Sequence[Request]
+            ) -> Tuple[List[Request], EngineMetrics]:
+        """Serve ``requests`` to completion; returns (finished, metrics)."""
+        ecfg, S = self.ecfg, self.ecfg.max_slots
+        self._start_run()
         run_sid = self.tracer.begin("run", cat="engine", tid=ENGINE_TID) \
             if self.tracer.enabled else None
         finished: List[Request] = []
@@ -819,11 +825,8 @@ class Engine:
         steps = 1 << (steps.bit_length() - 1)    # a power of two, as upstream
         if self._paged:
             self._grow_tables(steps)
-        cfg = self.cfg
         n_active = int(self._active.sum())
         mode = self._active_mode()
-        active, nw = self._dactive, self._dnw
-        act_tok = self._per_token(active)
         tr = self.tracer
         timed = tr.enabled or self.perf is not None
         sid = tr.begin("decode_burst", cat="decode", tid=ENGINE_TID) \
@@ -831,29 +834,12 @@ class Engine:
         sink = self._sink()
         t0 = time.perf_counter()
         span = DeviceSpan(self.device) if timed else None
-        ys = []
-        state, tok = self._state, self._tok
-        for i in range(steps):
-            logits, new = self._decode(sink, self.params, state, tok, self._ctx)
-            state = new._replace(pos=torch.where(active, new.pos, state.pos))
-            nxt = self._sample(logits[:, 0, ..., :cfg.vocab_size], mode,
-                               None if mode == "greedy" else nw + i)
-            tok = torch.where(act_tok, nxt[:, None], tok)
-            ys.append(nxt)
-        ys = torch.stack(ys)
-        # the device slot table advances as the output scatter clamps:
-        # an active slot writes min(steps, budget - written) useful tokens
-        adv = torch.where(active, torch.clamp(self._dbudget - nw, 0, steps),
-                          torch.zeros_like(nw))
-        if sink is not None:
-            obs_rt.ctr_add(self._ctr, "decode_tokens", torch.sum(adv))
-            self._count_dispatch(sink, steps)
-        nw += adv
+        ys = self._engine_step(steps, mode, sink)
         if span is not None:
             span.stop()
-        ys = ys.cpu().numpy()                     # the burst's one sync
+        # rpr-ok: RPR008 the burst's one host read: the tokens the scheduler needs
+        ys = ys.cpu().numpy()
         wall = time.perf_counter() - t0
-        self._state, self._tok = state, tok
         before = self._nwritten[self._active]
         after = np.minimum(before + steps, self._budget[self._active])
         for b, n0, n1 in zip(np.flatnonzero(self._active), before, after):
@@ -865,6 +851,34 @@ class Engine:
         self._record_burst("decode_burst", sid, span, wall, steps, n_active,
                            n_tokens, [int(x) for x in after - before],
                            {"steps": steps, "mode": mode})
+
+    def _engine_step(self, steps: int, mode: str, sink) -> torch.Tensor:
+        """The device work of one decode burst, with no host read: ``steps``
+        decode steps over every slot (inactive slots ride along with
+        frozen positions), the sampled tokens, and the device slot table's
+        advance. Returns the (steps, S[, CB]) tokens on the device."""
+        cfg = self.cfg
+        active, nw = self._dactive, self._dnw
+        act_tok = self._per_token(active)
+        ys = []
+        state, tok = self._state, self._tok
+        for i in range(steps):
+            logits, new = self._decode(sink, self.params, state, tok, self._ctx)
+            state = new._replace(pos=torch.where(active, new.pos, state.pos))
+            nxt = self._sample(logits[:, 0, ..., :cfg.vocab_size], mode,
+                               None if mode == "greedy" else nw + i)
+            tok = torch.where(act_tok, nxt[:, None], tok)
+            ys.append(nxt)
+        # the device slot table advances as the output scatter clamps:
+        # an active slot writes min(steps, budget - written) useful tokens
+        adv = torch.where(active, torch.clamp(self._dbudget - nw, 0, steps),
+                          torch.zeros_like(nw))
+        if sink is not None:
+            obs_rt.ctr_add(self._ctr, "decode_tokens", torch.sum(adv))
+            self._count_dispatch(sink, steps)
+        nw += adv
+        self._state, self._tok = state, tok
+        return torch.stack(ys)
 
     def _record_burst(self, kind: str, sid, span, wall: float, steps: int,
                       n_active: int, n_tokens: int, per_slot: List[int],
@@ -898,16 +912,13 @@ class Engine:
         prefix plus the correction-or-bonus token is emitted; both lanes
         roll back by position. The dispatch's one host read is the
         emitted tokens, which the scheduler needs."""
-        k, cfg, V = self._spec.k, self.cfg, self.cfg.vocab_size
+        k = self._spec.k
         if self._paged:
             # the verify writes up to k + 1 serving positions (the draft
             # lane writes through the same table)
             self._grow_tables(k + 1)
         n_active = int(self._active.sum())
         mode = self._active_mode()
-        active, nw, budget = self._dactive, self._dnw, self._dbudget
-        act_tok = self._per_token(active)
-        state, dstate, tok = self._state, self._dstate, self._tok
         tr = self.tracer
         timed = tr.enabled or self.perf is not None
         sid = tr.begin("spec_burst", cat="decode", tid=ENGINE_TID) \
@@ -915,6 +926,41 @@ class Engine:
         sink = self._sink()
         t0 = time.perf_counter()
         span = DeviceSpan(self.device) if timed else None
+        host = self._spec_step(mode, sink, n_active)
+        if span is not None:
+            span.stop()
+        tgt_shape = (host.shape[0], k + 1) + self._cb
+        # rpr-ok: RPR008 the dispatch's one host read: the emitted tokens
+        host = host.cpu().numpy()
+        wall = time.perf_counter() - t0
+        ne, tgt_h = host[:, 0], host[:, 1:].reshape(tgt_shape)
+        for b in np.flatnonzero(self._active):
+            n0 = self._nwritten[b]
+            self._out[b, n0:n0 + ne[b]] = tgt_h[b, :ne[b]]
+        self._nwritten[self._active] += ne[self._active]
+        if self._paged:
+            self._pos_h[self._active] += ne[self._active]
+        n_tokens = int(ne.sum())
+        self.spec_stats["dispatches"] += 1
+        self.spec_stats["proposed"] += k * n_active
+        # emitted minus the always-emitted correction token: undercounts
+        # only where the budget clamp cut a matched run
+        self.spec_stats["accepted"] += int(
+            np.maximum(ne[self._active] - 1, 0).sum())
+        self._record_burst("spec_burst", sid, span, wall, k + 1, n_active,
+                           n_tokens, [int(x) for x in ne[self._active]],
+                           {"k": k, "mode": mode})
+
+    def _spec_step(self, mode: str, sink, n_active: int) -> torch.Tensor:
+        """The device work of one draft/verify dispatch, with no host read:
+        k draft invocations, the (k+1)-token verify, the coupled accept,
+        both lanes' rollback and the device slot table's advance. Returns
+        the (S, 1 + (k+1)[·CB]) host fetch: each slot's emitted count, then
+        its verify tokens."""
+        k, V = self._spec.k, self.cfg.vocab_size
+        active, nw, budget = self._dactive, self._dnw, self._dbudget
+        act_tok = self._per_token(active)
+        state, dstate, tok = self._state, self._dstate, self._tok
 
         def draft_step(dst, toks):
             lg, dnew = self._decode(sink, self._draft_params, dst, toks,
@@ -967,29 +1013,8 @@ class Engine:
             self._count_dispatch(sink, k + 1)
         nw += n_emit
 
-        host = torch.cat([n_emit[:, None],
+        return torch.cat([n_emit[:, None],
                           tgt.reshape(tgt.shape[0], -1).to(n_emit.dtype)], dim=1)
-        if span is not None:
-            span.stop()
-        host = host.cpu().numpy()                 # the one host read
-        wall = time.perf_counter() - t0
-        ne, tgt_h = host[:, 0], host[:, 1:].reshape(tgt.shape)
-        for b in np.flatnonzero(self._active):
-            n0 = self._nwritten[b]
-            self._out[b, n0:n0 + ne[b]] = tgt_h[b, :ne[b]]
-        self._nwritten[self._active] += ne[self._active]
-        if self._paged:
-            self._pos_h[self._active] += ne[self._active]
-        n_tokens = int(ne.sum())
-        self.spec_stats["dispatches"] += 1
-        self.spec_stats["proposed"] += k * n_active
-        # emitted minus the always-emitted correction token: undercounts
-        # only where the budget clamp cut a matched run
-        self.spec_stats["accepted"] += int(
-            np.maximum(ne[self._active] - 1, 0).sum())
-        self._record_burst("spec_burst", sid, span, wall, k + 1, n_active,
-                           n_tokens, [int(x) for x in ne[self._active]],
-                           {"k": k, "mode": mode})
 
     # ------------------------------------------------------------------
     def _harvest(self, finished: List[Request]) -> None:

@@ -142,6 +142,42 @@ def test_serve_recurrent_families_match_reference(arch, kw, monkeypatch):
     assert got["metrics"]["n_finished"] == want["metrics"]["n_finished"] == 3
 
 
+# on RECURRENT_KW's shape (int8_compute on)
+FAMILY_ROUTES = {
+    "packed_paged8": dict(packed=True, paged=True, kv_bits=8),
+    "int8": dict(int8=True),
+    "spec3_w4": dict(packed=True, paged=True, kv_bits=8, spec_k=3,
+                     spec_bits="4"),
+    "sampled": dict(packed=True, paged=True, kv_bits=8, sampling=(0.8, 5, 0.9)),
+}
+
+
+@pytest.mark.parametrize("route", sorted(FAMILY_ROUTES))
+@pytest.mark.parametrize("arch", ["musicgen_large", "phi3_vision_4_2b"])
+@pytest.mark.usefixtures("one_thread")
+def test_serve_audio_vlm_families_match_reference(arch, route, monkeypatch):
+    """The audio and vlm families through the CLI on four routes: packed
+    on paged 8-bit KV, int8-backed, speculative (k = 3, a 4-bit draft)
+    and sampled (T 0.8, top-k 5, top-p 0.9): the same generated matrix
+    (musicgen's (B, G, CB) grids), finished count, decode tokens and
+    peak pages as the reference's serve()."""
+    from repro.serve import SamplingParams as JSamplingParams
+    monkeypatch.setenv("REPRO_KERNELS", "ref")
+    tp = _ref_params(arch)
+    monkeypatch.setattr(tserve, "init_params", lambda cfg, seed=0, device=None: tp)
+    jkw, tkw = dict(FAMILY_ROUTES[route]), dict(FAMILY_ROUTES[route])
+    if "sampling" in jkw:
+        t, k, p = jkw.pop("sampling")
+        jkw["sampling"] = JSamplingParams(temperature=t, top_k=k, top_p=p, seed=3)
+        tkw["sampling"] = SamplingParams(temperature=t, top_k=k, top_p=p, seed=3)
+    want = jserve.serve(arch, True, **RECURRENT_KW, **jkw)
+    got = tserve.serve(arch, True, **RECURRENT_KW, **tkw, device="cpu")
+    assert got["generated"].shape[:2] == (3, 6)
+    np.testing.assert_array_equal(got["generated"], np.asarray(want["generated"]))
+    for key in ("n_finished", "decode_tokens", "kv_peak_pages"):
+        assert got["metrics"][key] == want["metrics"][key], key
+
+
 def test_serve_refuses_paged_ssm_like_reference():
     """--paged on the ssm family: refused, as by the reference."""
     with pytest.raises(ValueError) as want:
