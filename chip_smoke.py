@@ -98,8 +98,7 @@ Phases, in order; any failure exits non-zero:
      pages == the dense cache and tp=2 on one card == tp=1; state bytes
      a slot; last, a decode step of each under the profiler (launches
      and device ms a step);
-  3k. the audio and vlm families and the paper's testbed
-     (``FAMILY_PATHS``, ``testbed_path``): musicgen_large and
+  3k. the audio and vlm families (``FAMILY_PATHS``): musicgen_large and
      phi3_vision_4_2b at full width cut to 4 layers, each through the
      main path (the report peak within 1.3 x params + 2 GB; musicgen on
      (B, 128, 4) codebook grids, phi3_vision on 576 image patches + 128
@@ -107,10 +106,19 @@ Phases, in order; any failure exits non-zero:
      requests on 4 slots, alone == batched), musicgen's 16-bit pages ==
      the dense cache on its (P, 4) prompt grids, phi3_vision's prefill
      of one request's image patches and text against the forward on the
-     same inputs (the last position's argmax); then the CNN and the
-     U-Net at their own widths: SGD training, the FIT report, FIT and
-     the quantized loss change of 32 random mixed-precision configs,
-     their Spearman, test accuracy and mIoU;
+     same inputs (the last position's argmax);
+  3m. the paper's experiments (``repro_torch.paper``; ``paper_path``) at
+     a cut protocol: Table 1 (EF against one-probe Hutchinson, 24 rounds),
+     Fig. 1 (256 samples, 200 probes), Fig. 2 (30 of its 60 rounds) and
+     Fig. 5 (12 configs) on one shared testbed (the reference trains one
+     a module), Table 2's studies C and D (of four: 12 configs x 60 QAT
+     steps each), Fig. 4 whole (the U-Net, 10 configs x 50 QAT steps;
+     its training again from the CPU generator's init);
+     every number finite, EF traces non-negative, two Hutchinson runs of
+     one seed equal, ef_sqnorm launched; the three example twins
+     (serve_quantized, mpq_search, train_e2e) in subprocesses on the card,
+     exit 0 with their key lines; one Table-1 EF iteration under the
+     profiler in a child process (ef_sqnorm's device share);
   4. print the kernels line and the main-path metrics;
   5. print {"ok": true, "device": {...}} as the last line.
 
@@ -201,10 +209,19 @@ def bound_ms(nbytes: float, ops: float, peak_ops: float):
 # (256000 x 3072), llama3_8b's (128256 x 4096), zamba2_7b's wz/wx/out_proj
 # (3584 x 7168), musicgen_large's embedding (4 x 2048 x 2048) and head
 # (2048 x 8192), a norm's scale; in fp32 a Mamba2 conv weight (4 x 7424)
-# and the default CNN's conv1 (3 x 3 x 3 x 16), fc (512 x 10) and conv3
-# (3 x 3 x 32 x 32) blocks
+# and the 16-filter CNN's conv1 (3 x 3 x 3 x 16) and conv3 (3 x 3 x 32 x 32)
+# blocks (Table 2's studies A and B); the default CNN's fc (512 x 10), on
+# phase 3k's path until 3m took its testbed's place
 EF_PATH_ROWS = (786_432_000, 525_336_576, 25_690_112, 16_777_216, 2048)
 EF_PATH_ROWS_F32 = (29_696, 432, 5120, 9216)
+# the paper's narrow testbeds (phase 3m): the 8-filter CNN on 8 x 8 inputs
+# (conv1 3 x 3 x 3 x 8, conv2 3 x 3 x 8 x 16, conv3 3 x 3 x 16 x 16, fc
+# 64 x 4, a batch-norm scale), Table 2's 16-filter conv2 and fc and the
+# U-Net's head (3 x 3 x 8 x 4), fp32; their activation taps as the
+# report reduces them: the CNN's act1 (256, 8·8·8), the U-Net's enc1
+# (128, 16·16·8)
+EF_TESTBED_ROWS_F32 = (16, 216, 256, 288, 1152, 2304, 4608, 512)
+EF_TESTBED_TAP_ROWS = ((256, 512), (128, 2048))
 # an activation tap as ef_trace_activations reduces it on phase 3b's
 # internlm2_1_8b path: the k / v site of 4 x 128 tokens, (B, S·KV·Dh) bf16
 EF_TAP_ROWS = ((4, 128 * 8 * 128),)
@@ -276,8 +293,10 @@ def check_ef_sqnorm(timer, gen, rows):
         check(randn((4, n)), f"(4, {n})")
     for n in EF_PATH_ROWS:
         check(randn((1, n)), f"(1, {n})")
-    for n in EF_PATH_ROWS_F32:
+    for n in EF_PATH_ROWS_F32 + EF_TESTBED_ROWS_F32:
         check(randn((1, n), torch.float32), f"(1, {n})")
+    for shape in EF_TESTBED_TAP_ROWS:
+        check(randn(shape, torch.float32), f"{shape} testbed tap")
     for shape in EF_TAP_ROWS:
         check(randn(shape), f"{shape} KV tap")
     for shape in EF_SCALAR_ROWS:
@@ -1314,10 +1333,15 @@ def main() -> int:
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         result["family_path"] = fp = family_path()
-        result["testbed_path"] = tb = testbed_path()
-        log(f"phase 3k: the audio and vlm families and the paper's testbed in "
+        log(f"phase 3k: the audio and vlm families in "
             f"{time.perf_counter() - t0:.1f} s")
-        log(json.dumps({"family_path": fp, "testbed_path": tb}))
+        log(json.dumps({"family_path": fp}))
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        result["paper_path"] = pp = paper_path()
+        log(f"phase 3m: the paper's experiments in {time.perf_counter() - t0:.1f} s")
+        log(json.dumps({"paper_path": pp}))
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1329,7 +1353,7 @@ def main() -> int:
              + [tpp["launches"], spp["launches"], op["launches"],
                 cp["launches"], lp["launches"], tp["launches"], hp["launches"]]
              + list(rp["launches"].values()) + list(fp["launches"].values())
-             + list(tb["launches"].values()))
+             + [pp["launches"]])
     log(json.dumps({"kernels": kernels_line(rows, paths)}))
     for arch, mp in mps.items():
         log(f"[{card}] {arch} ({mp['layers']} layers): report "
@@ -1439,7 +1463,8 @@ def main() -> int:
         f"Spearman of the {hp['blocks']} per-block traces "
         f"{hp['spearman']:.4f}")
     log_recurrent(card, rp)
-    log_families(card, fp, tb)
+    log_families(card, fp)
+    log_paper(card, pp)
     log_analysis(card, ap)
     log(card)
     log(json.dumps({"ok": True, "device": {
@@ -1475,7 +1500,7 @@ def log_recurrent(card: str, rp: dict) -> None:
         "3j seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in rp["seconds"].items()))
 
 
-def log_families(card: str, fp: dict, tb: dict) -> None:
+def log_families(card: str, fp: dict) -> None:
     """Phase 3k's summary lines."""
     for arch, mp in fp["paths"].items():
         log(f"[{card}] 3k {arch} ({mp['layers']} layers): report "
@@ -1495,14 +1520,6 @@ def log_families(card: str, fp: dict, tb: dict) -> None:
                 f"tokens vs forward: last argmax equal, max rel diff "
                 f"{vp['max_rel_diff']:.3e}; forward {vp['forward_s']:.2f} s, "
                 f"prefill {vp['prefill_s']:.2f} s")
-    for name in ("cnn", "unet"):
-        t = tb[name]
-        log(f"[{card}] 3k {name}: {t['steps']} SGD steps in {t['train_s']:.2f} s, "
-            f"{t['score_name']} {t['score']:.4f}; report ({t['n_report']} "
-            f"samples, {t['weight_blocks']} blocks, {t['act_sites']} sites) "
-            f"{t['report_s']:.2f} s, peak {t['report_peak_mem_gb']:.3f} GB; "
-            f"Spearman(FIT, quantized loss change) over {t['configs']} "
-            f"configs {t['spearman']:.4f}")
     log(f"[{card}] phase 3k seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in fp["seconds"].items()))
 
@@ -1585,11 +1602,11 @@ PATH_KERNELS = {"dense": ("ef_sqnorm", "qmm", "paged_attention"),
                 "ssm": ("ef_sqnorm", "qmm"),
                 "hybrid": ("ef_sqnorm", "qmm", "paged_attention"),
                 "hybrid_tp": ("qmm_groups", "qmm", "paged_attention"),
-                # phase 3k: the audio and vlm families, the paper's testbed
+                # phase 3k: the audio and vlm families
                 "audio": ("ef_sqnorm", "qmm", "paged_attention"),
                 "vlm": ("ef_sqnorm", "qmm", "paged_attention"),
-                "cnn": ("ef_sqnorm",),
-                "unet": ("ef_sqnorm",),
+                # phase 3m: the paper's experiments
+                "paper": ("ef_sqnorm",),
                 # phase 3i: obs-enabled serving, by route
                 "obs": ("qmm", "paged_attention"),
                 "obs_moe": ("qmm", "grouped_qmm", "paged_attention"),
@@ -3626,119 +3643,327 @@ def family_path() -> dict:
     return res
 
 
-TESTBED = {
-    # name: SGD steps, batch, learning rate, train / test samples, report
-    # samples; the CNN's recipe is tests/test_fit_metric.py's
-    "cnn": dict(steps=400, batch=128, lr=3e-3, n_train=4096, n_test=1024,
-                n_report=256),
-    "unet": dict(steps=400, batch=32, lr=3e-3, n_train=1024, n_test=256,
-                 n_report=64),
-}
-TESTBED_CONFIGS = 32
+# phase 3m: the paper's experiments (repro_torch.paper) at a cut protocol.
+# Cuts of the reference's protocol (benchmarks/*.py), for the script's
+# time limit: Table 1, Figs. 1, 2 and 5 share one testbed (the reference
+# trains one a module, seeds 0, 1, 2 and 4: here seed 0); Fig. 2 runs
+# PAPER_FIG2_ITERS of its 60 rounds; Table 2 runs PAPER_T2_STUDIES (the
+# 8-filter studies C and D) of its four. Table 1 (24 rounds), Fig. 1 (256
+# samples, 200 probes), Fig. 4 (300 steps, 10 configs x 50 QAT steps) and
+# Fig. 5 (12 configs) run whole. `python -m repro_torch.paper.run` runs
+# the whole protocol.
+PAPER_FIG2_ITERS = 30
+PAPER_T2_STUDIES = ("C_mnistlike_bn", "D_mnistlike_nobn")
+PAPER_HUTCH_PROBES = 8          # the determinism check: two runs of one seed
+# the example twins, each in a subprocess on this card: (script, arguments,
+# lines its output must hold)
+EXAMPLES = (
+    ("serve_quantized_torch.py", (),
+     ("per-request greedy agreement", "identical samples: True",
+      "paged QTensor-page engine: 8 finished")),
+    ("mpq_search_torch.py", (),
+     ("scored 4096 configs", "greedy@4.5b materialized", "final QAT loss")),
+    ("train_e2e_torch.py", ("--steps", "20", "--qat", "4"), ("final loss:",)),
+)
 
 
-def testbed_path() -> dict:
-    """Phase 3k, second half: the paper's own testbed on the card at its
-    own widths (``init_cnn`` / ``init_unet`` defaults, the datasets'
-    defaults): SGD training (``TESTBED``), the FIT report (EF weight and
-    activation traces, each block's per-sample gradient reduced by
-    ``ef_sqnorm`` as a (1, N) fp32 row), then FIT and the quantized loss
-    change (``QATContext``) of ``TESTBED_CONFIGS`` random mixed-precision
-    configs, their Spearman (the paper's Table-2 protocol; printed, no
-    gate), test accuracy / mIoU. Counters are reset just before each
-    report and read after its sweep."""
-    from repro_torch.core import build_report, sample_configs, spearman
-    from repro_torch.data.synthetic import (
-        ClassifyConfig, SegmentConfig, batched, classify_dataset,
-        segment_dataset)
-    from repro_torch.models import cnn, unet
-    from repro_torch.models.context import QATContext
-    from repro_torch.quant.policy import QuantPolicy
-    from repro_torch.utils.pytree import named_leaves
+def start_examples(tmp: str) -> list:
+    """Start every example twin in its own process on the card."""
+    import os
 
-    models = {
-        "cnn": (cnn.init_cnn(seed=0), cnn.cnn_loss, cnn.cnn_tap_loss,
-                cnn.cnn_tap_shapes, cnn.cnn_act_fn,
-                lambda n, split: classify_dataset(ClassifyConfig(), n, split),
-                cnn.cnn_accuracy),
-        "unet": (unet.init_unet(seed=0), unet.unet_loss, unet.unet_tap_loss,
-                 unet.unet_tap_shapes, unet.unet_act_fn,
-                 lambda n, split: segment_dataset(SegmentConfig(), n, split),
-                 unet.unet_miou),
-    }
-    res = {"launches": {}}
-    for name, (params, loss_fn, tap_loss, tap_shapes, act_fn, data, score) \
-            in models.items():
-        rc = TESTBED[name]
-        out = res[name] = dict(rc)
-        t0 = time.perf_counter()
-        xtr, ytr = data(rc["n_train"], 0)
-        xte, yte = data(rc["n_test"], 7)
-        out["data_s"] = time.perf_counter() - t0
-        leaves = [p.requires_grad_(True) for _, p in named_leaves(params)]
-        t0 = time.perf_counter()
-        for i, (x, y) in enumerate(batched(xtr, ytr, rc["batch"], seed=0)):
-            if i >= rc["steps"]:
-                break
-            batch = (torch.from_numpy(x).to("cuda"), torch.from_numpy(y).to("cuda"))
-            grads = torch.autograd.grad(loss_fn(params, batch), leaves)
-            with torch.no_grad():
-                for p, g in zip(leaves, grads):
-                    p.sub_(rc["lr"] * g)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for script, args, _ in EXAMPLES:
+        extra = ("--ckpt", str(Path(tmp) / "e2e")) if script.startswith("train") else ()
+        procs.append((time.perf_counter(), subprocess.Popen(
+            [sys.executable, str(ROOT / "examples" / script), *args, *extra],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+            cwd=str(ROOT))))
+    return procs
+
+
+def finish_examples(procs: list) -> dict:
+    """Wait for the example processes (killing every one still running if
+    one fails); each must exit 0 with its key lines, the serving example's
+    packed payload equal to its FIT-predicted bytes and each of its three
+    kernels launched."""
+    import re
+
+    out = {}
+    try:
+        for (script, _, lines), (t0, proc) in zip(EXAMPLES, procs):
+            stdout, stderr = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                raise AssertionError(f"3m: {script} exited {proc.returncode}:\n"
+                                     f"{stderr[-3000:]}")
+            for line in lines:
+                if line not in stdout:
+                    raise AssertionError(f"3m: {script} printed no {line!r}:\n"
+                                         f"{stdout[-3000:]}")
+            res = out[script] = {"wall_s": time.perf_counter() - t0}
+            if script.startswith("serve"):
+                pay = re.search(r"packed payload (\d+) B == FIT-predicted (\d+) B: True",
+                                stdout)
+                if not pay or pay.group(1) != pay.group(2):
+                    raise AssertionError(f"3m: packed payload != FIT-predicted bytes:"
+                                         f"\n{stdout[-3000:]}")
+                launches = {k: int(v) for k, v in re.findall(
+                    r"(ef_sqnorm|qmm|paged_attention) (\d+)",
+                    stdout.split("kernel launches on")[1].splitlines()[0])}
+                if len(launches) != 3 or min(launches.values()) <= 0:
+                    raise AssertionError(f"3m: {script} kernel launches {launches}")
+                res.update(packed_payload_bytes=int(pay.group(1)), launches=launches,
+                           agreement=re.findall(r"agree=\s*([\d.]+)%", stdout))
+            res["tail"] = stdout.strip().splitlines()[-2][-200:]
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def ef_share_child() -> None:
+    """Run as a child process of phase 3m, after its timed runs: where one
+    Table-1 EF iteration's device time goes (the testbed of seed 0, one
+    random batch of 32, one backward a sample), under torch.profiler
+    after three warm iterations. Prints one JSON line."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.paper import common
+
+    with common.reproducible():                     # as phase 3m runs
+        print(json.dumps({"ef_share": _ef_share(torch.device("cuda"))}),
+              flush=True)
+
+
+def _ef_share(dev: torch.device) -> dict:
+    import numpy as np
+
+    from torch.autograd import DeviceType
+
+    from repro_torch.core import ef_trace_weights
+    from repro_torch.core.report import to_device_batch
+    from repro_torch.models.cnn import cnn_loss
+    from repro_torch.paper import common, table1_estimator
+
+    params, (xtr, ytr), _, _ = common.train_cnn_testbed(seed=0, batchnorm=False,
+                                                        device=dev)
+    sel = np.random.default_rng(0).permutation(len(xtr))[:table1_estimator.BATCH]
+    batch = to_device_batch((xtr[sel], ytr[sel]), dev)
+    for _ in range(3):
+        ef_trace_weights(cnn_loss, params, batch)
+    walls = []
+    for _ in range(5):
         torch.cuda.synchronize()
-        out["train_s"] = time.perf_counter() - t0
-        for p in leaves:
-            p.requires_grad_(False)
-        out["score"] = score(params, torch.from_numpy(xte).to("cuda"),
-                             torch.from_numpy(yte).to("cuda"))
-        out["score_name"] = "test accuracy" if name == "cnn" else "test mIoU"
-        batch = (torch.from_numpy(xtr[:rc["n_report"]]).to("cuda"),
-                 torch.from_numpy(ytr[:rc["n_report"]]).to("cuda"))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
         t0 = time.perf_counter()
-        report = build_report(loss_fn, tap_loss, lambda b: tap_shapes(params, b),
-                              act_fn, params, [batch], tolerance=None,
-                              max_batches=1)
+        ef_trace_weights(cnn_loss, params, batch)       # ends in host floats
+        walls.append(time.perf_counter() - t0)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        ef_trace_weights(cnn_loss, params, batch)
         torch.cuda.synchronize()
-        out["report_s"] = time.perf_counter() - t0
-        out["report_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        traces = list(report.weight_traces.values()) + list(report.act_traces.values())
-        if not all(math.isfinite(t) and t >= 0 for t in traces) \
-                or not report.act_traces:
-            raise AssertionError(f"{name}: non-finite, negative or missing EF trace")
-        out["weight_blocks"] = len(report.weight_traces)
-        out["act_sites"] = len(report.act_traces)
-        out["block_sizes"] = report.param_sizes
-        configs = sample_configs(report, QuantPolicy(allowed_bits=(8, 6, 4, 3),
-                                                     pinned_substrings=()),
-                                 n=TESTBED_CONFIGS, seed=3)
-        t0 = time.perf_counter()
-        with torch.no_grad():
-            base = float(loss_fn(params, batch))
-            fits, dloss = [], []
-            for c in configs:
-                lw = {k: float(2 ** b - 1) for k, b in c.weight_bits.items()}
-                la = {k: float(2 ** b - 1) for k, b in c.act_bits.items()}
-                fits.append(report.fit(c))
-                dloss.append(float(loss_fn(params, batch,
-                                           ctx=QATContext(lw, la))) - base)
+    per = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            n, ns = per.get(e.name(), (0, 0))
+            per[e.name()] = (n + 1, ns + e.duration_ns())
+    ef = [(n, ns) for name, (n, ns) in per.items() if "ef_sqnorm" in name]
+    total_ns = sum(ns for _, ns in per.values())
+    ef_ns = sum(ns for _, ns in ef)
+    wall = statistics.median(walls)
+    return {
+        "samples": len(sel), "wall_ms": 1e3 * wall,
+        "device_ms": total_ns / 1e6, "ef_sqnorm_ms": ef_ns / 1e6,
+        "ef_sqnorm_launches": sum(n for n, _ in ef),
+        "kernel_launches": sum(n for n, _ in per.values()),
+        "ef_sqnorm_share_of_device": ef_ns / total_ns,
+        "ef_sqnorm_share_of_wall": ef_ns / 1e9 / wall,
+        "device_busy_share": total_ns / 1e9 / wall,
+        "top": sorted(((name[:80], n, ns / 1e6) for name, (n, ns) in per.items()),
+                      key=lambda r: -r[2])[:6]}
+
+
+def run_ef_share_child() -> dict:
+    """``ef_share_child`` in a fresh process on this card (a profiler
+    session slows every later launch of its process)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.ef_share_child()"],
+        capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"3m: the EF-share child exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])["ef_share"]
+
+
+def _finite(label: str, values) -> None:
+    bad = [v for v in values if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"3m: {label}: non-finite values {bad[:4]}")
+
+
+def paper_path() -> dict:
+    """Phase 3m: the paper's experiments on the card through
+    ``repro_torch.paper`` at the cut protocol above. Every number finite;
+    the testbed's and the reports' EF traces finite and non-negative; two
+    Hutchinson runs of one seed equal; ``ef_sqnorm`` launched (counters
+    set to 0 just before, read just after the in-process experiments);
+    the example twins in subprocesses on the card (started before Table
+    2 and waited for after Fig. 4) exit 0 with their key lines; then the
+    EF-share child. Prints each claim's number. Runs with cuDNN's
+    deterministic convolution algorithms and without TF32, as the paper's
+    harness does."""
+    from repro_torch.paper import common
+
+    dev = torch.device("cuda")
+    with common.reproducible():
+        return _paper_path(dev)
+
+
+def _paper_path(dev: torch.device) -> dict:
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core import hutchinson_block_traces
+    from repro_torch.core.report import to_device_batch
+    from repro_torch.models.cnn import cnn_loss
+    from repro_torch.models.unet import init_unet
+    from repro_torch.paper import (
+        common, fig1_trace_similarity as fig1, fig2_convergence as fig2,
+        fig4_segmentation as fig4, fig5_assumptions as fig5,
+        table1_estimator as table1, table2_rankcorr as table2)
+
+    sec: dict = {}
+    res = {"seconds": sec}
+
+    def lap(name, t0):
         torch.cuda.synchronize()
-        out["sweep_s"] = time.perf_counter() - t0
-        res["launches"][name] = read_counts()
-        for k in PATH_KERNELS[name]:
-            if res["launches"][name][k] <= 0:
-                raise AssertionError(f"kernel {k} was not launched by the "
-                                     f"{name} report")
-        if not all(math.isfinite(v) for v in fits + dloss):
-            raise AssertionError(f"{name}: non-finite FIT or loss change")
-        out.update({"base_loss": base, "configs": len(configs),
-                    "spearman": spearman(fits, dloss),
-                    "fit_range": [min(fits), max(fits)],
-                    "dloss_range": [min(dloss), max(dloss)]})
-        del params, report
+        sec[name] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    params, (xtr, ytr), (xte, yte), acc = common.train_cnn_testbed(
+        seed=0, batchnorm=False, device=dev)
+    res["testbed"] = {"test_accuracy": acc}
+    t0 = lap("testbed", t0)
+    t1 = res["table1"] = table1.measure(params, xtr, ytr, dev)
+    t0 = lap("table1", t0)
+    batch = to_device_batch((xtr[:fig1.SAMPLES], ytr[:fig1.SAMPLES]), dev)
+    f1 = res["fig1"] = fig1.measure(params, batch, dev)
+    t0 = lap("fig1", t0)
+    runs = [hutchinson_block_traces(cnn_loss, params, batch,
+                                    torch.Generator(device=dev).manual_seed(0),
+                                    iters=PAPER_HUTCH_PROBES) for _ in range(2)]
+    if runs[0][0] != runs[1][0] or any(
+            not np.array_equal(runs[0][1][k], runs[1][1][k]) for k in runs[0][1]):
+        raise AssertionError("3m: two Hutchinson runs of one seed differ")
+    t0 = lap("hutchinson_twice", t0)
+    f2 = res["fig2"] = fig2.measure(params, xtr, ytr, dev, iters=PAPER_FIG2_ITERS)
+    t0 = lap("fig2", t0)
+    f5 = res["fig5"] = {"frac_noise_below_param_3bit": fig5.noise_below_magnitude(params),
+                        **fig5.measure(params, (xtr, ytr), (xte, yte), dev)}
+    t0 = lap("fig5", t0)
+    tmp = tempfile.mkdtemp(prefix="repro_torch_examples_")
+    procs = start_examples(tmp)
+    try:
+        studies = {}
+        for name, seed, bn, filters in table2.STUDIES:
+            if name in PAPER_T2_STUDIES:
+                studies[name] = table2._study(name, seed, bn, filters, dev)
+        res["table2"] = {"studies": studies, **table2.summarize(studies)}
+        t0 = lap("table2", t0)
+        up, train, test, fp_miou = fig4.train_unet(dev)
+        f4 = res["fig4"] = {"fp_miou": fp_miou, **fig4.measure(up, train, test, dev)}
+        t0 = lap("fig4", t0)
+        # the same training from the CPU generator's init, the one the
+        # port's CPU runs start from: the card's trajectory follows the
+        # CPU's, so an fp mIoU apart from the CPU's is the init's
+        f4["fp_miou_from_cpu_init"] = fig4.train_unet(
+            dev, params=init_unet(0, base=8, device="cpu"))[3]
+        t0 = lap("fig4_cpu_init", t0)
+        res["launches"] = read_counts()
+        res["examples"] = finish_examples(procs)
+        t0 = lap("examples_wait", t0)
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    for k in PATH_KERNELS["paper"]:
+        if res["launches"][k] <= 0:
+            raise AssertionError(f"3m: kernel {k} was not launched")
+    for label, traces in (("fig1 EF", f1["ef"]), ("fig1 Hessian", f1["hessian"]),
+                          ("fig5 report", {**f5["weight_traces"], **f5["act_traces"]}),
+                          ("fig4 report", {**f4["weight_traces"], **f4["act_traces"]})):
+        _finite(label, traces.values())
+        if label != "fig1 Hessian" and min(traces.values()) < 0:
+            raise AssertionError(f"3m: {label}: a negative EF trace")
+    if not f5["act_traces"] or not f4["act_traces"]:
+        raise AssertionError("3m: a report without activation traces")
+    _finite("claims", [
+        acc, t1["ef_variance_rel"], t1["hessian_variance_rel"], t1["ef_s"],
+        t1["hessian_s"], t1["fixed_tolerance_speedup"],
+        t1["variance_ratio_H_over_EF"], f1["ef_hessian_spearman"],
+        f1["ef_hessian_pearson"], f2["convergence_ratio"],
+        f5["frac_noise_below_param_3bit"], f5["fit_train_acc_spearman"],
+        f5["fit_test_acc_spearman"], fp_miou, f4["fit_miou_spearman"],
+        res["table2"]["FIT_mean"], res["table2"]["FIT_vs_FITW_gain"],
+        *(v for s in studies.values() for v in s.values()),
+        *t1["ef_series"], *t1["hessian_series"], *f2["ef_series"],
+        *f2["hessian_series"], *f4["fits"], *f4["mious"], *f5["fits"]])
+    t0 = time.perf_counter()
+    res["ef_share"] = run_ef_share_child()
+    lap("ef_share_child", t0)
     return res
+
+
+def log_paper(card: str, pp: dict) -> None:
+    """Phase 3m's claim lines."""
+    t1, f1, f2, f5, t2, f4 = (pp[k] for k in ("table1", "fig1", "fig2", "fig5",
+                                               "table2", "fig4"))
+    log(f"[{card}] 3m testbed (seed 0, no BN, 300 SGD steps): test accuracy "
+        f"{pp['testbed']['test_accuracy']:.4f}")
+    log(f"[{card}] 3m Table 1 ({len(t1['ef_series'])} rounds of 32): relative variance "
+        f"EF {t1['ef_variance_rel']:.4e}, Hessian {t1['hessian_variance_rel']:.4e} "
+        f"(ratio {t1['variance_ratio_H_over_EF']:.1f}); median s an estimate EF "
+        f"{t1['ef_s']:.4f}, Hessian {t1['hessian_s']:.4f} (EF/H time "
+        f"{t1['ef_over_hessian_time']:.2f}); fixed-tolerance speedup "
+        f"{t1['fixed_tolerance_speedup']:.1f}x")
+    log(f"[{card}] 3m Fig. 1 ({f1['blocks']} blocks): Spearman(EF, Hessian) "
+        f"{f1['ef_hessian_spearman']:.4f}, Pearson {f1['ef_hessian_pearson']:.4f}")
+    log(f"[{card}] 3m Fig. 2 ({PAPER_FIG2_ITERS} rounds): iterations to 5% EF "
+        f"{f2['ef_iters_to_5pct']}, Hessian {f2['hessian_iters_to_5pct']}, ratio "
+        f"{f2['convergence_ratio']:.1f}x")
+    log(f"[{card}] 3m Fig. 5: 3-bit noise below the magnitude for "
+        f"{f5['frac_noise_below_param_3bit']:.4f} of the weights; Spearman(FIT, "
+        f"train acc) {f5['fit_train_acc_spearman']:.4f}, (FIT, test acc) "
+        f"{f5['fit_test_acc_spearman']:.4f} over {f5['configs']} configs")
+    for name, row in t2["studies"].items():
+        log(f"[{card}] 3m Table 2 {name}: fp acc {row['fp_acc']:.4f}; " + ", ".join(
+            f"{k} {v:.3f}" for k, v in row.items() if k not in ("fp_acc",)))
+    log(f"[{card}] 3m Table 2 over {len(t2['studies'])} studies: FIT mean "
+        f"{t2['FIT_mean']:.4f}, FIT - FIT_W {t2['FIT_vs_FITW_gain']:+.4f}")
+    log(f"[{card}] 3m Fig. 4: fp mIoU {f4['fp_miou']:.4f} (from the CPU "
+        f"generator's init {f4['fp_miou_from_cpu_init']:.4f}); Spearman(FIT, "
+        f"mIoU) over {f4['configs']} configs {f4['fit_miou_spearman']:.4f}")
+    es = pp["ef_share"]
+    log(f"[{card}] 3m one Table-1 EF iteration ({es['samples']} samples): wall "
+        f"{es['wall_ms']:.2f} ms, device {es['device_ms']:.3f} ms over "
+        f"{es['kernel_launches']} launches; ef_sqnorm {es['ef_sqnorm_ms']:.3f} ms "
+        f"over {es['ef_sqnorm_launches']} launches = "
+        f"{es['ef_sqnorm_share_of_device']:.3f} of device time, "
+        f"{es['ef_sqnorm_share_of_wall']:.4f} of the wall")
+    log(f"[{card}] 3m examples: " + ", ".join(
+        f"{k} {v['wall_s']:.1f} s" for k, v in pp["examples"].items())
+        + f"; serving example kernels {pp['examples']['serve_quantized_torch.py']['launches']}")
+    log(f"[{card}] phase 3m seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in pp["seconds"].items()))
 
 
 HESSIAN_LAYERS = 4      # depth of phase 3h's model (full width)

@@ -190,9 +190,13 @@ def ef_trace_activations(tap_loss_fn, params: Any,
                            requires_grad=True)
             for k, (shape, dtype) in tap_shapes.items()}
     loss = tap_loss_fn(params, taps, batch)
-    grads = torch.autograd.grad(loss, list(taps.values()))
+    grads = dict(zip(taps, torch.autograd.grad(loss, list(taps.values()))))
     out: Dict[str, float] = {}
-    for name, gi in zip(taps, grads):
+    # sites in sorted order, as the reference's pytree of tap gradients
+    # gives them: the report's site order sets which site each column of
+    # a sampled config (``core.mpq.sample_packed``) quantizes
+    for name in sorted(grads):
+        gi = grads[name]
         rows = kops.ef_sqnorm(gi.reshape(gi.shape[0], -1))
         # ∇_{a_i} f_i = N * row_i  ⇒  (1/N) Σ_i N²||row_i||² = N Σ_i ||row_i||²
         out[name] = float(n * torch.sum(rows))

@@ -35,7 +35,8 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.obs.drift", "repro_torch.obs.perf",
             "repro_torch.analysis.findings", "repro_torch.analysis.lint",
             "repro_torch.analysis.bounds", "repro_torch.analysis.dispatch_check",
-            "repro_torch.launch.roofline"} <= set(mods)
+            "repro_torch.launch.roofline", "repro_torch.paper.run",
+            "repro_torch.paper.table2_rankcorr"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -142,6 +143,31 @@ def test_train_cli_help_loads_neither_jax_nor_repro():
                  "--qat-act-bits", "--watchdog-s", "--lr"):
         assert flag in out, flag
     assert "--device" not in out
+
+
+EXAMPLES = sorted(p.name for p in (PKG.parents[1] / "examples").glob("*_torch.py"))
+
+
+@pytest.mark.parametrize("script", EXAMPLES)
+def test_example_help_loads_neither_jax_nor_repro(script):
+    """Each ``examples/*_torch.py --help`` runs with only the port and
+    torch loaded, and offers ``--device``."""
+    assert len(EXAMPLES) == 4
+    path = PKG.parents[1] / "examples" / script
+    code = ("import runpy, sys\n"
+            f"sys.argv = [{str(path)!r}, '--help']\n"
+            "try:\n"
+            f"    runpy.run_path({str(path)!r}, run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
+            " or k == 'repro' or k.startswith('repro.'))\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={"PYTHONPATH": str(PKG.parent),
+                                         "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert "--device" in out.stdout
 
 
 # public names of a reference package that wait for a later queue item
