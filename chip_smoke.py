@@ -91,7 +91,7 @@ Phases, in order; any failure exits non-zero:
      per-block Hessian traces (8 probes, fp32, seeded), each timed, their
      Spearman correlation, finite and deterministic under one seed;
   3j. the recurrent families at full width (``RECURRENT_PATHS``):
-     mamba2_130m (24 layers, dense per-slot SSM state) and zamba2_7b
+     mamba2_130m (cut to 12 of 24 layers, dense per-slot SSM state) and zamba2_7b
      (cut to 15 layers; paged at FIT KV widths) each through the main
      path (report peak within 1.3 x params + 2 GB, W8/W4 QTensors,
      Poisson serving, alone == batched); on zamba2_7b's params 16-bit
@@ -119,6 +119,16 @@ Phases, in order; any failure exits non-zero:
      (serve_quantized, mpq_search, train_e2e) in subprocesses on the card,
      exit 0 with their key lines; one Table-1 EF iteration under the
      profiler in a child process (ef_sqnorm's device share);
+  3n. (last) the (data, model) mesh of sharded training, prefill and
+     decode, every shard on this card (``mesh_path``): build_train_step
+     on internlm2_1_8b at full width and 2 layers (fp32) on a (2,4) mesh
+     against the (1,1) step, with ZeRO-1 and then with compressed
+     gradients, timed in turns, its collectives recorded; olmoe_1b_7b's
+     expert-parallel forward (64 experts, 16 a shard) against the
+     unsharded one; build_decode_step(w8kv8) for 8 greedy steps, (2,4)
+     == (1,1), paged_attention launched by every shard; pipeline_apply on
+     4 stages == sequential_apply, compressed_psum over 8 shards == its
+     arithmetic; the EF traces on a 2-shard data mesh == no mesh;
   4. print the kernels line and the main-path metrics;
   5. print {"ok": true, "device": {...}} as the last line.
 
@@ -1342,6 +1352,13 @@ def main() -> int:
         result["paper_path"] = pp = paper_path()
         log(f"phase 3m: the paper's experiments in {time.perf_counter() - t0:.1f} s")
         log(json.dumps({"paper_path": pp}))
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        result["mesh_path"] = mp3n = mesh_path()
+        log(f"phase 3n: the (data, model) mesh in {time.perf_counter() - t0:.1f} s, "
+            f"peak device memory {mp3n['peak_mem_gb']:.1f} GB")
+        log(json.dumps({"mesh_path": mp3n}))
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1353,7 +1370,7 @@ def main() -> int:
              + [tpp["launches"], spp["launches"], op["launches"],
                 cp["launches"], lp["launches"], tp["launches"], hp["launches"]]
              + list(rp["launches"].values()) + list(fp["launches"].values())
-             + [pp["launches"]])
+             + [pp["launches"], mp3n["launches"]])
     log(json.dumps({"kernels": kernels_line(rows, paths)}))
     for arch, mp in mps.items():
         log(f"[{card}] {arch} ({mp['layers']} layers): report "
@@ -1466,6 +1483,7 @@ def main() -> int:
     log_families(card, fp)
     log_paper(card, pp)
     log_analysis(card, ap)
+    log_mesh(card, mp3n)
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -1607,6 +1625,9 @@ PATH_KERNELS = {"dense": ("ef_sqnorm", "qmm", "paged_attention"),
                 "vlm": ("ef_sqnorm", "qmm", "paged_attention"),
                 # phase 3m: the paper's experiments
                 "paper": ("ef_sqnorm",),
+                # phase 3n: the (data, model) mesh (the w8kv8 decode's
+                # cache reads, the data-mesh EF traces)
+                "mesh": ("paged_attention", "ef_sqnorm"),
                 # phase 3i: obs-enabled serving, by route
                 "obs": ("qmm", "paged_attention"),
                 "obs_moe": ("qmm", "grouped_qmm", "paged_attention"),
@@ -3328,8 +3349,10 @@ def obs_overhead(qp, cfg, ecfg, kw, turns: int = 2, steps: int = 8) -> dict:
 # 16-64): the prefill is one host-paced step a token. Every serve of the
 # phase holds twice as many requests as the engine's 4 slots, so half are
 # admitted into a slot a finished request used (alone == batched then
-# shows a recurrent state that leaks across admissions)
-RECURRENT_PATHS = (("mamba2_130m", 8, None), ("zamba2_7b", 8, 15))
+# shows a recurrent state that leaks across admissions). mamba2_130m ran
+# whole (24 layers, ~20 s of the phase) until phase 3n's ~20 s were paid
+# for by cutting it to 12
+RECURRENT_PATHS = (("mamba2_130m", 8, 12), ("zamba2_7b", 8, 15))
 RECURRENT_CONTRACT_REQUESTS = 8
 RECURRENT_PROMPTS = (8, 32)
 
@@ -3964,6 +3987,327 @@ def log_paper(card: str, pp: dict) -> None:
         + f"; serving example kernels {pp['examples']['serve_quantized_torch.py']['launches']}")
     log(f"[{card}] phase 3m seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in pp["seconds"].items()))
+
+
+# phase 3n: the (data, model) mesh, every shard on this one card
+MESH_SHAPE = (2, 4)
+MESH_AXES = ("data", "model")
+MESH_LAYERS = 2         # depth of 3n's full-width models
+MESH_BATCH, MESH_SEQ = 4, 128
+MESH_DECODE_STEPS = 8
+MESH_DECODE_LEN = 64
+MESH_PIPE = (4, 8, 16, 2048)        # stages, microbatches, microbatch rows, D
+
+
+def _mesh_cfg(arch: str, **kw):
+    """``arch`` at full width, cut to MESH_LAYERS, in fp32 (the parity
+    checks hold the reference's fp32 tolerances)."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), num_layers=MESH_LAYERS,
+                               dtype="float32", **kw)
+
+
+def _lm_batch(cfg, dev):
+    from repro_torch.data.synthetic import LMStreamConfig, lm_batches
+    from repro_torch.launch.steps import batch_to_device
+    return batch_to_device(next(lm_batches(LMStreamConfig(
+        vocab_size=cfg.vocab_size, seq_len=MESH_SEQ, global_batch=MESH_BATCH,
+        seed=0))), dev)
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def mesh_train(dev) -> dict:
+    """3n (a): ``build_train_step`` on internlm2_1_8b (full width, 2
+    layers) on a (2,4) mesh against the (1,1) step from the same params
+    and batch: ZeRO-1, then ZeRO-1 with compressed gradients. Loss rtol
+    1e-4, params rtol 3e-2 / atol 3e-3 (the reference's bar), the
+    gradient's global norm rtol 1e-3; one (2,4) step's collectives
+    recorded; then each step timed in turns (1,1), (2,4), (2,4), (1,1)."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.sharding import ShardOptions
+    from repro_torch.launch.steps import TrainState, build_train_step, gather
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.adamw import init_adam
+    from repro_torch.utils.hlo import CollectiveStats
+    from repro_torch.utils.pytree import named_leaves
+
+    cfg = _mesh_cfg("internlm2_1_8b")
+    params = init_params(cfg, seed=0, device=dev)
+    batch = _lm_batch(cfg, dev)
+    shape = ShapeSpec("t", MESH_SEQ, MESH_BATCH, "train")
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "batch": MESH_BATCH,
+           "seq": MESH_SEQ, "mesh": list(MESH_SHAPE)}
+    for name, opts in (("zero1", ShardOptions(zero1=True)),
+                       ("compressed", ShardOptions(zero1=True, grad_compression=True))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        m1 = Mesh.on_device((1, 1), MESH_AXES, dev)
+        m8 = Mesh.on_device(MESH_SHAPE, MESH_AXES, dev)
+        sb1 = build_train_step(cfg, shape, m1, opts)
+        sb8 = build_train_step(cfg, shape, m8, opts)
+        (s1, r1), first1 = _timed(lambda: sb1.fn(TrainState(params, init_adam(params)),
+                                                 batch))
+        stats = CollectiveStats()
+        with m8.recording(stats):
+            (s8, r8), first8 = _timed(lambda: sb8.fn(
+                TrainState(params, init_adam(params)), batch))
+        l1, l8 = float(r1["loss"]), float(r8["loss"])
+        n1, n8 = float(r1["grad_norm"]), float(r8["grad_norm"])
+        if not math.isclose(l8, l1, rel_tol=1e-4) or not math.isclose(n8, n1, rel_tol=1e-3):
+            raise AssertionError(f"3n train {name}: {MESH_SHAPE} loss {l8} norm "
+                                 f"{n8} vs (1,1) {l1} {n1}")
+        g1 = dict(named_leaves(gather(s1.params)))
+        worst = 0.0
+        for leaf, a in named_leaves(gather(s8.params)):
+            b = g1[leaf]
+            if not torch.allclose(a, b, rtol=3e-2, atol=3e-3):
+                raise AssertionError(f"3n train {name}: {leaf} differs")
+            worst = max(worst, float((a - b).abs().max()))
+        del g1
+        walls = {"(1,1)": [], "mesh": []}
+        for turn in ("(1,1)", "mesh", "mesh", "(1,1)"):
+            sb, st = (sb1, s1) if turn == "(1,1)" else (sb8, s8)
+            (st, r), wall = _timed(lambda: sb.fn(st, batch))
+            float(r["loss"])
+            walls[turn].append(wall)
+        out[name] = {"loss": l8, "loss_1x1": l1, "grad_norm": n8,
+                     "grad_norm_1x1": n1, "max_param_abs_diff": worst,
+                     "first_step_s": {"(1,1)": first1, "mesh": first8},
+                     "step_s": walls,
+                     "collective_bytes": dict(stats.bytes_by_kind),
+                     "collective_counts": dict(stats.count_by_kind),
+                     "collective_traffic": dict(stats.traffic_by_kind),
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del s1, s8, sb1, sb8
+    return out
+
+
+def mesh_moe(dev) -> dict:
+    """3n (b): olmoe_1b_7b (full width: 64 experts, top-8; 2 layers) on a
+    (2,4) mesh through the prefill step, ``moe_apply_ep`` with 16 experts
+    a shard, against the unsharded forward at capacity factor 16: max
+    relative error below 2e-3 (the reference's bar)."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models.transformer import forward, init_params
+
+    cfg = _mesh_cfg("olmoe_1b_7b", capacity_factor=16.0)
+    params = init_params(cfg, seed=0, device=dev)
+    tok = _lm_batch(cfg, dev)["tokens"]
+    sb = build_prefill_step(cfg, ShapeSpec("p", MESH_SEQ, MESH_BATCH, "prefill"),
+                            Mesh.on_device(MESH_SHAPE, MESH_AXES, dev))
+    with torch.no_grad():
+        ref, ref_s = _timed(lambda: forward(params, {"tokens": tok}, cfg)[0])
+    got, mesh_s = _timed(lambda: sb.fn(params, {"tokens": tok}).full())
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    if not rel < 2e-3:
+        raise AssertionError(f"3n MoE EP: relative error {rel}")
+    return {"arch": cfg.name, "layers": cfg.num_layers, "experts": cfg.num_experts,
+            "top_k": cfg.top_k, "experts_a_shard": cfg.num_experts // MESH_SHAPE[1],
+            "max_rel_err": rel, "unsharded_s": ref_s, "mesh_s": mesh_s}
+
+
+def mesh_decode(dev) -> dict:
+    """3n (c): ``build_decode_step(w8kv8)`` on internlm2_1_8b (full width,
+    2 layers, its 8 kv heads 2 a model shard) for MESH_DECODE_STEPS greedy
+    steps at (1,1) and (2,4) from one token: the same tokens. Every shard
+    reads its heads through ``paged_attention`` once a layer and step,
+    counted by the wrapper."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.sharding import ShardOptions
+    from repro_torch.launch.steps import (
+        build_decode_step, place, quantize_decode_params)
+    from repro_torch.models.decode import init_decode_state
+    from repro_torch.models.transformer import init_params
+
+    cfg = _mesh_cfg("internlm2_1_8b")
+    qp, scales = quantize_decode_params(init_params(cfg, seed=0, device=dev), cfg)
+    tok0 = _lm_batch(cfg, dev)["tokens"][:, :1]
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "steps": MESH_DECODE_STEPS}
+    for ms in ((1, 1), MESH_SHAPE):
+        mesh = Mesh.on_device(ms, MESH_AXES, dev)
+        sb = build_decode_step(cfg, ShapeSpec("d", MESH_DECODE_LEN, MESH_BATCH,
+                                              "decode"), mesh,
+                               ShardOptions(decode_quant="w8kv8"))
+        state = init_decode_state(cfg, MESH_BATCH, MESH_DECODE_LEN, device=dev,
+                                  kv_dtype=torch.int8)
+        params = place(qp, sb.shardings[0])          # laid out once, not a step
+        tok, toks, walls = tok0, [], []
+        before = pa.launches
+        for _ in range(MESH_DECODE_STEPS):
+            (logits, state), wall = _timed(lambda: sb.fn(params, state, tok,
+                                                         scales=scales))
+            tok = torch.argmax(logits.full()[:, -1], -1)[:, None].to(torch.int32)
+            toks.append(tok[:, 0].tolist())
+            walls.append(wall)
+        launches = pa.launches - before
+        want = MESH_DECODE_STEPS * cfg.num_layers * mesh.size
+        if launches != want:
+            raise AssertionError(f"3n decode {ms}: {launches} paged_attention "
+                                 f"launches, want {want}")
+        out[str(ms)] = {"tokens": toks, "step_s": statistics.median(walls[1:]),
+                        "paged_attention_launches": launches,
+                        "paged_attention_launches_per_shard": launches // mesh.size,
+                        "kv_spec": repr(sb.shardings[1].kv.k.spec)}
+    if out[str((1, 1))]["tokens"] != out[str(MESH_SHAPE)]["tokens"]:
+        raise AssertionError(f"3n decode: {MESH_SHAPE} tokens differ from (1,1): {out}")
+    return out
+
+
+def mesh_pipeline_psum(dev) -> dict:
+    """3n (d): ``pipeline_apply`` on a 4-stage "pipe" mesh (tanh(h W + b),
+    D = 2048, 8 microbatches of 16 rows) against ``sequential_apply``
+    (rtol 1e-5, gradients too); ``compressed_psum`` over 8 shards of 4 M
+    fp32 values each against the same arithmetic written out (bit for
+    bit), within 3% of the mean."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.pipeline import pipeline_apply, sequential_apply
+    from repro_torch.optim.compression import compressed_psum
+    from repro_torch.utils.hlo import CollectiveStats
+
+    s_, m_, mb, d = MESH_PIPE
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = {"w": (torch.randn(s_, d, d, generator=gen, device=dev) * d ** -0.5
+                    ).requires_grad_(True),
+              "b": (torch.randn(s_, d, generator=gen, device=dev) * 0.1
+                    ).requires_grad_(True)}
+    x = torch.randn(m_, mb, d, generator=gen, device=dev)
+
+    def layer(p, h):
+        return torch.tanh(h @ p["w"] + p["b"])
+
+    mesh = Mesh.on_device((s_,), ("pipe",), dev)
+    pipe, pipe_s = _timed(lambda: pipeline_apply(layer, params, x, mesh))
+    seq, seq_s = _timed(lambda: sequential_apply(layer, params, x))
+    if not torch.allclose(pipe, seq, rtol=1e-5, atol=1e-6):
+        raise AssertionError("3n: pipeline != sequential")
+    gp = torch.autograd.grad((pipe ** 2).sum(), [params["w"], params["b"]])
+    gs = torch.autograd.grad((seq ** 2).sum(), [params["w"], params["b"]])
+    if not all(torch.allclose(a, b, rtol=1e-4, atol=1e-6) for a, b in zip(gp, gs)):
+        raise AssertionError("3n: pipeline gradients != sequential gradients")
+    n = 8
+    g = torch.randn(n, 4 * 2**20, generator=gen, device=dev)
+    dm = Mesh.on_device((n,), ("data",), dev)
+    stats = CollectiveStats()
+    with dm.recording(stats):
+        got, psum_s = _timed(lambda: compressed_psum({(i,): g[i] for i in range(n)},
+                                                     dm, "data"))
+    scale = torch.clamp_min(g.abs().max(), 1e-12) / 127.0
+    q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int32)
+    want = q.sum(0, dtype=torch.int32).to(torch.float32) * scale / float(n)
+    if not all(torch.equal(got[(i,)], want) for i in range(n)):
+        raise AssertionError("3n: compressed_psum != its arithmetic written out")
+    mean = g.mean(0)
+    err = float((want - mean).abs().max())
+    if err > 0.03 * float(mean.abs().max()) + 1e-3:
+        raise AssertionError(f"3n: compressed mean off by {err}")
+    return {"pipeline": {"stages": s_, "microbatches": m_, "rows": mb, "d": d,
+                         "ticks": m_ + s_ - 1, "pipeline_s": pipe_s,
+                         "sequential_s": seq_s,
+                         "max_abs_diff": float((pipe - seq).detach().abs().max())},
+            "compressed_psum": {"shards": n, "elements": g.shape[1],
+                                "s": psum_s, "max_abs_err_vs_mean": err,
+                                "collective_bytes": dict(stats.bytes_by_kind)}}
+
+
+def mesh_ef_trace(dev) -> dict:
+    """3n (e): the EF weight traces of internlm2_1_8b (full width, 2
+    layers, bf16, one batch of 4 x 128) on a 2-shard "data" mesh (a
+    ``Mesh``, not a ``TPMesh``) against no mesh, within 1e-5."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ef_trace_weights
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.transformer import init_params, loss_fn
+
+    cfg = dataclasses.replace(get_config("internlm2_1_8b"), num_layers=MESH_LAYERS)
+    params = init_params(cfg, seed=0, device=dev)
+    batch = _lm_batch(cfg, dev)
+
+    def loss(p, z):
+        return loss_fn(p, z, cfg)
+
+    plain, plain_s = _timed(lambda: ef_trace_weights(loss, params, batch))
+    sharded, mesh_s = _timed(lambda: ef_trace_weights(
+        loss, params, batch, mesh=Mesh.on_device((2,), ("data",), dev)))
+    rel = max(abs(sharded[k] - v) / max(abs(v), 1e-30) for k, v in plain.items())
+    if list(sharded) != list(plain) or not rel < 1e-5:
+        raise AssertionError(f"3n: data-mesh EF traces off by {rel}")
+    return {"blocks": len(plain), "max_rel_err": rel, "plain_s": plain_s,
+            "mesh_s": mesh_s}
+
+
+def mesh_path(dev=None) -> dict:
+    """Phase 3n: the (data, model) mesh on this card, every shard on it
+    (so no collective crosses a card): the sharded train step (a), MoE
+    expert parallelism (b), the w8kv8 decode step (c), the GPipe pipeline
+    and the compressed all-reduce (d), and the EF traces on a data mesh
+    (e). Counters set to 0 just before, read just after."""
+    dev = dev or torch.device("cuda", 0)
+    sec: dict = {}
+    res = {"seconds": sec}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    for key, fn in (("train", mesh_train), ("moe_ep", mesh_moe),
+                    ("decode", mesh_decode), ("pipeline_psum", mesh_pipeline_psum),
+                    ("ef_trace", mesh_ef_trace)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res[key] = fn(dev)
+        torch.cuda.synchronize()
+        sec[key] = time.perf_counter() - t0
+    res["launches"] = read_counts()
+    for name in PATH_KERNELS["mesh"]:
+        if res["launches"][name] <= 0:
+            raise AssertionError(f"3n: kernel {name} was not launched")
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return res
+
+
+def log_mesh(card: str, mp: dict) -> None:
+    """Phase 3n's lines."""
+    tr = mp["train"]
+    for name in ("zero1", "compressed"):
+        t = tr[name]
+        log(f"[{card}] 3n train {tr['arch']} ({tr['layers']} layers, fp32, batch "
+            f"{tr['batch']}x{tr['seq']}) {name}: loss {tr['mesh']} {t['loss']:.6f} "
+            f"vs (1,1) {t['loss_1x1']:.6f}; step s in turns (1,1) "
+            + "/".join(f"{v:.3f}" for v in t["step_s"]["(1,1)"]) + f", {tr['mesh']} "
+            + "/".join(f"{v:.3f}" for v in t["step_s"]["mesh"])
+            + f"; collective bytes {t['collective_bytes']} counts "
+            f"{t['collective_counts']}; peak {t['peak_mem_gb']:.1f} GB")
+    mo, de, pp, ef = mp["moe_ep"], mp["decode"], mp["pipeline_psum"], mp["ef_trace"]
+    log(f"[{card}] 3n MoE EP {mo['arch']} ({mo['experts']} experts, top-"
+        f"{mo['top_k']}, {mo['experts_a_shard']} a shard): max rel err "
+        f"{mo['max_rel_err']:.2e}; unsharded {mo['unsharded_s']:.3f} s, "
+        f"{list(MESH_SHAPE)} {mo['mesh_s']:.3f} s")
+    d8 = de[str(MESH_SHAPE)]
+    log(f"[{card}] 3n decode w8kv8 {de['arch']}: {de['steps']} greedy steps equal "
+        f"at (1,1) and {MESH_SHAPE}; step s (1,1) {de[str((1, 1))]['step_s']:.4f}, "
+        f"{MESH_SHAPE} {d8['step_s']:.4f}; paged_attention launches per shard "
+        f"{d8['paged_attention_launches_per_shard']} (cache {d8['kv_spec']})")
+    pi, cp = pp["pipeline"], pp["compressed_psum"]
+    log(f"[{card}] 3n pipeline {pi['stages']} stages x {pi['microbatches']} "
+        f"microbatches at D={pi['d']}: {pi['pipeline_s']:.4f} s vs sequential "
+        f"{pi['sequential_s']:.4f} s; compressed_psum over {cp['shards']} shards "
+        f"of {cp['elements']} values {cp['s']:.4f} s, bytes "
+        f"{cp['collective_bytes']}")
+    log(f"[{card}] 3n EF traces on a 2-shard data mesh: {ef['blocks']} blocks, "
+        f"max rel err {ef['max_rel_err']:.2e}; {ef['mesh_s']:.2f} s vs "
+        f"{ef['plain_s']:.2f} s; phase 3n seconds: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in mp["seconds"].items()))
 
 
 HESSIAN_LAYERS = 4      # depth of phase 3h's model (full width)

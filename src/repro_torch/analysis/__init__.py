@@ -30,7 +30,7 @@ def run_all(dispatch: bool = True, bounds: bool = True, lint: bool = True,
     """Run the selected passes and return the combined report. The
     dispatch pass runs its targets on ``device`` (default: the GPU;
     ``"cpu"`` for the plain versions); ``sharded=False`` leaves out the
-    two-shard engine target (the port is single-controller, so it runs
+    two-shard engine targets (the port is single-controller, so it runs
     by default on one device); ``stats`` receives each dispatch target's
     op count and, on the card, its synchronizing calls."""
     report = Report()
@@ -43,7 +43,8 @@ def run_all(dispatch: bool = True, bounds: bool = True, lint: bool = True,
     if dispatch:
         from repro_torch.analysis import dispatch_check as _dispatch
         variants = tuple(v for v in _dispatch.ENGINE_VARIANTS
-                         if sharded is not False or v != "sharded")
+                         if sharded is not False
+                         or v not in ("sharded", "moe-ep"))
         report.extend(_dispatch.run(device=device, variants=variants,
                                     stats=stats))
     return report

@@ -74,6 +74,9 @@ def named_arrays(tree: Any) -> List[Tuple[str, Any]]:
 
 
 def _to_numpy(leaf: Any) -> np.ndarray:
+    from repro_torch.launch.mesh import ShardedTensor
+    if isinstance(leaf, ShardedTensor):
+        leaf = leaf.full()
     if not isinstance(leaf, torch.Tensor):
         return np.asarray(leaf)
     # always a copy: an async save must not see later in-place updates
@@ -222,10 +225,17 @@ class Checkpointer:
             return int(steps[-1][5:]) if steps else None
         return int(name[5:])
 
-    def restore(self, step: int, template: Any) -> Any:
+    def restore(self, step: int, template: Any, shardings: Any = None) -> Any:
         """Load ``step`` into ``template``'s structure: each leaf takes the
-        template leaf's dtype and device (a void leaf is reinterpreted)."""
+        template leaf's dtype and device (a void leaf is reinterpreted).
+        ``shardings`` (a tree of ``launch.mesh.NamedSharding``s, or None)
+        lays each leaf out on its mesh: the elastic restore onto another
+        mesh than the one that saved."""
         path = os.path.join(self.dir, f"step_{step:08d}", "arrays.npz")
         with np.load(path) as z:
             flat = {k: z[k] for k in z.files}
-        return _tree_like(flat, template)
+        tree = _tree_like(flat, template)
+        if shardings is None:
+            return tree
+        from repro_torch.launch.mesh import place
+        return place(tree, shardings)

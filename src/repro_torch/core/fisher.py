@@ -14,9 +14,9 @@ batch or the microbatch. ``ef_sqnorm`` reduces each row on its own, so a
 Batches are any pytree (dicts, tuples, lists, NamedTuples) whose leaves
 share the leading batch dim, as in the reference.
 
-Data-parallel mode (``mesh``, a ``launch.mesh.TPMesh``): the batch is
-split into ``mesh.size`` contiguous shards, shard i runs on
-``devices[i]`` with the parameters replicated there (shared where
+Data-parallel mode (``mesh``, a ``launch.mesh.TPMesh`` or a 1-D
+``launch.mesh.Mesh``): the batch is split into ``mesh.size`` contiguous
+shards, shard i runs on its device with the parameters replicated there (shared where
 devices coincide), each shard sums its per-block squared norms in fp32,
 and the sums are added on the lead device in shard order, then divided
 by N.
@@ -59,15 +59,41 @@ def _grad_leaves(params) -> Tuple[Dict[str, torch.Tensor], Any]:
     return leaves, map_with_names(lambda name, _: leaves[name], params)
 
 
+def _mesh_axes(mesh) -> Tuple[str, ...]:
+    """A ``TPMesh``'s one axis, or a ``launch.mesh.Mesh``'s axes."""
+    names = getattr(mesh, "axis_names", None)
+    return tuple(names) if names is not None else (mesh.axis_name,)
+
+
+def _shard_devices(mesh) -> list:
+    devs = mesh.devices
+    return list(devs.flat) if hasattr(devs, "flat") else list(devs)
+
+
+def _shard_sum(mesh, parts: list) -> torch.Tensor:
+    """The shards' parts summed in shard order on the lead device."""
+    if hasattr(mesh, "axis_names"):
+        # rpr-ok: RPR002 data-parallel EF sums, fp32 in shard order
+        return mesh.psum(dict(zip(mesh.coords(), parts)),
+                         mesh.axis_names[0])[mesh.origin]
+    # rpr-ok: RPR002 data-parallel EF sums, fp32 in shard order
+    return mesh.psum(parts)
+
+
 def _check_args(n: int, mesh, mesh_axis: Optional[str],
                 microbatch: Optional[int]) -> int:
     """The number of batch shards, after the reference's checks:
     ``mesh_axis`` names the mesh's one axis, the shards and ``microbatch``
     divide the batch."""
     shards = 1 if mesh is None else mesh.size
-    if mesh is not None and mesh_axis not in (None, mesh.axis_name):
-        raise ValueError(f"mesh_axis {mesh_axis!r}: the mesh's only axis is "
-                         f"{mesh.axis_name!r}")
+    if mesh is not None:
+        axes = _mesh_axes(mesh)
+        if len(axes) != 1:
+            raise ValueError(f"the data-parallel EF trace needs a 1-D mesh, "
+                             f"got axes {axes}")
+        if mesh_axis not in (None, axes[0]):
+            raise ValueError(f"mesh_axis {mesh_axis!r}: the mesh's only axis "
+                             f"is {axes[0]!r}")
     if n % shards:
         raise ValueError(f"batch {n} not divisible by {shards} shards")
     local = n // shards
@@ -113,12 +139,12 @@ def ef_trace_weights(loss_fn: LossFn, params: Any, batch: Any,
                      mesh_axis: Optional[str] = None) -> Dict[str, float]:
     """EF trace per parameter block: (1/N) Σ_i ||∇_θl f(z_i)||².
     ``loss_fn(params, batch)`` must return the MEAN loss over the batch.
-    ``mesh`` (a ``TPMesh``) runs the data-parallel mode.
+    ``mesh`` (a ``TPMesh`` or a 1-D ``Mesh``) runs the data-parallel mode.
     ``microbatch`` and ``mesh_axis`` are kept for the reference's
     signature and change neither the result nor the memory: the
     reduction holds one sample's gradients at a time whatever the
     microbatch, which must still divide the (per-shard) batch, and a
-    ``TPMesh`` has one axis, which ``mesh_axis`` (None: that axis) must
+    data mesh has one axis, which ``mesh_axis`` (None: that axis) must
     name."""
     n = _batch_size(batch)
     shards = _check_args(n, mesh, mesh_axis, microbatch)
@@ -136,7 +162,7 @@ def _ef_trace_weights_sharded(loss_fn: LossFn, params: Any, batch: Any,
     local = n // mesh.size
     replicas: Dict[torch.device, Any] = {}
     names, parts = None, []
-    for i, dev in enumerate(mesh.devices):
+    for i, dev in enumerate(_shard_devices(mesh)):
         if dev not in replicas:
             replicas[dev] = map_with_names(lambda _, leaf: leaf.to(dev), params)
         shard = _slice(batch, i * local, (i + 1) * local, dev)
@@ -145,8 +171,7 @@ def _ef_trace_weights_sharded(loss_fn: LossFn, params: Any, batch: Any,
         parts.append(torch.stack([torch.sum(sq[k]) for k in names]))
     # not a serving path: the mesh= report's contract is fp32 adds in
     # shard order, within 1e-5 of the report without a mesh
-    # rpr-ok: RPR002 data-parallel EF sums, fp32 in shard order
-    sums = mesh.psum(parts).tolist()
+    sums = _shard_sum(mesh, parts).tolist()
     return {k: v / n for k, v in zip(names, sums)}
 
 

@@ -56,7 +56,7 @@ def build_report(loss_fn: Callable, tap_loss_fn: Optional[Callable],
                  device: DeviceLike = None) -> SensitivityReport:
     """EF traces (weights + activations) and calibration ranges over up
     to ``max_batches`` batches (any pytree), moved to ``device`` (default:
-    the GPU). ``mesh`` (a ``TPMesh``) runs the weight traces
+    the GPU). ``mesh`` (a ``TPMesh`` or a 1-D ``Mesh``) runs the weight traces
     data-parallel: batch shards on its devices, per-block squared norms
     summed on the lead device (``fisher.ef_trace_weights``, which also
     says why ``microbatch`` and ``mesh_axis`` change nothing)."""

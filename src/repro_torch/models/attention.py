@@ -169,25 +169,135 @@ def attention_decode(x: torch.Tensor, p: Dict, cfg: ModelConfig, ctx,
     quant = cache.k.dtype == torch.int8
     if quant:
         knew, vnew = quantize_dense_kv_values(knew), quantize_dense_kv_values(vnew)
-    rows = torch.arange(b, device=x.device)[:, None].expand(b, tq)
-    _write_dense(((cache.k, knew), (cache.v, vnew)), rows, posb)
-    t = cache.k.shape[1]
+    if isinstance(cache.k, ShardedKV):
+        o = _sharded_update_read(q, knew, vnew, cache.k, cache.v, posb)
+    else:
+        rows = torch.arange(b, device=x.device)[:, None].expand(b, tq)
+        _write_dense(((cache.k, knew), (cache.v, vnew)), rows, posb)
+        o = _dense_read(q, cache.k, cache.v, posb)
+    o = ctx.tap("attn_out", o.to(x.dtype))
+    return ctx.matmul("wo", o, p["wo"]), cache
+
+
+def _dense_read(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                posb: torch.Tensor) -> torch.Tensor:
+    """Read a dense cache k, v (B, T_max, KV, Dh) — int8 on the
+    ``KV_SCALE`` grid, or fp — as pages of ``dense_page_size(T_max)``
+    tokens with an identity page table: (B, T, KV·G·Dh) in q's dtype."""
+    b, t = k.shape[0], k.shape[1]
     page = dense_page_size(t)
-    kp = cache.k.reshape((b * t // page, page) + tuple(cache.k.shape[2:]))
-    vp = cache.v.reshape(kp.shape)
+    kp = k.reshape((b * t // page, page) + tuple(k.shape[2:]))
+    vp = v.reshape(kp.shape)
     table = torch.arange(kp.shape[0], dtype=torch.int32,
-                         device=x.device).reshape(b, t // page)
+                         device=q.device).reshape(b, t // page)
     sc, bits = None, 16
-    if quant:
+    if k.dtype == torch.int8:
         sc = torch.full((kp.shape[0], kp.shape[2]), KV_SCALE,
-                        dtype=torch.float32, device=x.device)
+                        dtype=torch.float32, device=q.device)
         bits = 8
     # the reference's dense read is no paged-attention dispatch: its
     # counters stay silent here, as there
     with obs_rt.suspended():
-        o = _paged_read(q, kp, vp, table, posb, sc, sc, bits).to(x.dtype)
-    o = ctx.tap("attn_out", o)
-    return ctx.matmul("wo", o, p["wo"]), cache
+        return _paged_read(q, kp, vp, table, posb, sc, sc, bits).to(q.dtype)
+
+
+class ShardedKV:
+    """K or V of a data row's dense cache in a mesh decode step
+    (``launch.steps.build_decode_step``): ``parts[c]`` is model shard
+    c's slice, laid out by ``launch.steps.decode_state_pspecs``:
+    ``"heads"`` splits the kv heads, ``"seq"`` the positions, and
+    ``"repl"`` gives every shard the whole cache. Indexing selects a
+    layer of every part."""
+
+    def __init__(self, mesh, row, lead, parts, mode: str):
+        if mode not in ("heads", "seq", "repl"):
+            raise ValueError(f"mode must be heads|seq|repl, got {mode!r}")
+        self.mesh, self.row, self.lead = mesh, list(row), tuple(lead)
+        self.parts, self.mode = dict(parts), mode
+
+    def __getitem__(self, i) -> "ShardedKV":
+        return ShardedKV(self.mesh, self.row, self.lead,
+                         {c: p[i] for c, p in self.parts.items()}, self.mode)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.parts[self.lead].dtype
+
+
+def _sharded_update_read(q, knew, vnew, ck: ShardedKV, cv: ShardedKV,
+                         posb: torch.Tensor) -> torch.Tensor:
+    """Write the new K/V into a row's sharded cache and read it:
+    (B, T, H·Dh) on the row's lead device.
+
+      * heads — shard i writes its kv heads and reads its query heads
+        through ``_dense_read`` (the paged kernel on the card); the head
+        outputs are all-gathered in head order, the replicated read's;
+      * seq — the shard holding a position writes it; each shard scores
+        its positions and keeps the softmax partials (running max, sum,
+        weighted V in fp32), combined across shards in shard order
+        (``pmax`` of the maxima, then ``psum`` of the rescaled sums);
+      * repl — every shard writes its copy; the lead's is read.
+    """
+    mesh, row, lead = ck.mesh, ck.row, ck.lead
+    b, tq = posb.shape
+    if ck.mode == "repl":
+        for c in row:
+            d = mesh.device(c)
+            rows = torch.arange(b, device=d)[:, None].expand(b, tq)
+            _write_dense(((ck.parts[c], knew.to(d)), (cv.parts[c], vnew.to(d))),
+                         rows, posb.to(d))
+        return _dense_read(q, ck.parts[lead], cv.parts[lead], posb)
+    if ck.mode == "heads":
+        kvl = knew.shape[2] // len(row)
+        g = q.shape[2] // knew.shape[2]
+        outs = {}
+        for i, c in enumerate(row):
+            d = mesh.device(c)
+            hs = slice(i * kvl, (i + 1) * kvl)
+            pd = posb.to(d)
+            rows = torch.arange(b, device=d)[:, None].expand(b, tq)
+            _write_dense(((ck.parts[c], knew[:, :, hs].to(d)),
+                          (cv.parts[c], vnew[:, :, hs].to(d))), rows, pd)
+            outs[c] = _dense_read(q[:, :, hs.start * g:hs.stop * g].to(d),
+                                  ck.parts[c], cv.parts[c], pd)
+        return mesh.all_gather(outs, "model", dim=-1)[lead]
+    if tq != 1:
+        raise NotImplementedError(
+            "multi-token decode is not supported on a sequence-sharded cache")
+    ms, ls, accs = {}, {}, {}
+    kvh, dh = knew.shape[2], knew.shape[3]
+    g = q.shape[2] // kvh
+    for i, c in enumerate(row):
+        d = mesh.device(c)
+        kc, vc = ck.parts[c], cv.parts[c]
+        tl = kc.shape[1]
+        pd = posb[:, 0].to(d)
+        local = pd - i * tl
+        mine = ((local >= 0) & (local < tl))[:, None, None]
+        at = torch.clamp(local, 0, tl - 1)
+        ar = torch.arange(b, device=d)
+        for cache, new in ((kc, knew), (vc, vnew)):
+            cache[ar, at] = torch.where(mine, new[:, 0].to(d, cache.dtype),
+                                        cache[ar, at])
+        kf, vf = kc.to(torch.float32), vc.to(torch.float32)
+        if kc.dtype == torch.int8:
+            kf, vf = kf * KV_SCALE, vf * KV_SCALE
+        qg = q[:, 0].to(d, torch.float32).reshape(b, kvh, g, dh)
+        sc = torch.einsum("bkgd,btkd->bkgt", qg, kf) * (dh ** -0.5)
+        valid = (i * tl + torch.arange(tl, device=d))[None, :] <= pd[:, None]
+        sc = torch.where(valid[:, None, None, :], sc, torch.full_like(sc, NEG_INF))
+        m = torch.amax(sc, dim=-1)
+        pr = torch.exp(sc - m[..., None])
+        ms[c], ls[c] = m, torch.sum(pr, dim=-1)
+        accs[c] = torch.einsum("bkgt,btkd->bkgd", pr, vf)
+    m_all = mesh.pmax(ms, "model")
+    scale = {c: torch.exp(ms[c] - m_all[c]) for c in row}
+    # rpr-ok: RPR002 decode-path fp32 softmax partials of disjoint position ranges, folded in shard order (the mesh step is not under the serving engine's exactness contract)
+    l_all = mesh.psum({c: ls[c] * scale[c] for c in row}, "model")[lead]
+    # rpr-ok: RPR002 decode-path fp32 softmax partials of disjoint position ranges, folded in shard order
+    acc = mesh.psum({c: accs[c] * scale[c][..., None] for c in row}, "model")[lead]
+    o = acc / torch.clamp_min(l_all, 1e-30)[..., None]
+    return o.reshape(b, 1, kvh * g * dh)
 
 
 def _paged_read(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

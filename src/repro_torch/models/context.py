@@ -23,9 +23,14 @@ activation site ``ctx.tap(name, a)``; names are scoped with
   * ``ShardedDequantContext`` — ``DequantContext`` over a tensor-parallel
                           ``TPMesh``: the blocks of a shard plan run
                           shard-local kernels, combined exactly
+  * ``MeshContext``     — one data row of a (data, model) ``Mesh``: fp,
+                          QAT or int8-backed weights laid out by
+                          ``launch.sharding`` (training, prefill and the
+                          decode step of ``launch.steps``)
 """
 from __future__ import annotations
 
+import re
 from contextlib import contextmanager
 from typing import Any, Dict, List, Mapping, Optional
 
@@ -34,18 +39,22 @@ import torch
 from repro_torch.qtensor import QTensor, expert_slice
 
 
-def _dynamic_fake_quant_ste(x: torch.Tensor, levels) -> torch.Tensor:
+def _dynamic_fake_quant_ste(x: torch.Tensor, levels, lo=None,
+                            hi=None) -> torch.Tensor:
     """Min–max fake-quant of x with ``levels`` (2^b − 1, a float or a
     0-d tensor) and a straight-through gradient, as the reference's QAT
     forward computes it: the grid index is ``x / scale + zp`` (a
     division, unlike the fake-quant kernels), ``levels >= 32767`` is the
     identity (branch-free), and the STE is ``x + (y - x).detach()``.
-    Plain PyTorch ops, not the fake-quant kernel: the reference's QAT
-    path runs its own jnp arithmetic, not its kernel either."""
+    ``lo`` / ``hi`` (0-d fp32) give the range when x is one shard of a
+    weight: the grid of the whole tensor. Plain PyTorch ops, not the
+    fake-quant kernel: the reference's QAT path runs its own jnp
+    arithmetic, not its kernel either."""
     lv = torch.as_tensor(levels, dtype=torch.float32, device=x.device)
     xd = x.detach()
-    lo = torch.clamp_max(torch.amin(xd), 0.0).to(torch.float32)
-    hi = torch.clamp_min(torch.amax(xd), 0.0).to(torch.float32)
+    if lo is None:
+        lo = torch.clamp_max(torch.amin(xd), 0.0).to(torch.float32)
+        hi = torch.clamp_min(torch.amax(xd), 0.0).to(torch.float32)
     scale = torch.clamp_min((hi - lo) / lv, 1e-12)
     zp = torch.round(-lo / scale)
     q = torch.clamp(torch.round(xd.to(torch.float32) / scale + zp), 0.0)
@@ -481,3 +490,223 @@ def _int32_dots(xq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     xp = torch.zeros((mp, k), dtype=torch.int8, device=xq.device)
     xp[:m] = xq
     return torch._int_mm(xp, w)[:m]
+
+
+# weight blocks ``MeshContext`` routes (``ctx.matmul`` / ``expert_matmul``
+# / ``qw``); every other leaf the model reads as it is
+ROUTED = ("wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down", "wz", "wx",
+          "wB", "wC", "wdt", "out_proj", "head", "router")
+
+
+class MeshContext(QATContext):
+    """One data row of a (data, model) ``launch.mesh.Mesh``: the
+    training and prefill counterpart of ``ShardedDequantContext`` (also
+    the mesh decode step's), standing where the reference's step
+    functions lay weights out by ``launch.sharding``'s specs. ``lead`` is the coordinate of the row's
+    lead shard, where the row's activations live: they stay replicated
+    within the row between blocks. ``shards`` maps a block's ``ctx``
+    path to its ``launch.mesh.ShardedTensor`` (laid out by
+    ``launch.sharding.param_pspecs``).
+
+    ``matmul`` by the weight's spec ("tp" strategy):
+
+      * last dim over "model" (column block): each model shard computes
+        its output columns from the whole input; the columns are
+        all-gathered;
+      * dim −2 over "model" (row block): each shard multiplies its slice
+        of the input's last dim; the fp partials are ``psum``'d in shard
+        order;
+      * replicated: the whole product on the lead shard;
+      * any other layout, and every sharded weight under ``"fsdp"``: the
+        weight is all-gathered at use and the product is whole.
+
+    ``expert_matmul`` treats an (E, d_in, d_out) stack the same way on
+    its last two dims (MoE-TP splits the expert hidden dim); an
+    expert-sharded stack is ``models.moe.moe_apply_ep``'s and is
+    gathered here only when EP is off.
+
+    Weights pass through ``qw`` shard by shard: QAT levels
+    (``weight_levels``/``act_levels``, full block paths) fake-quantize
+    each shard on the grid of the WHOLE weight (its min and max taken
+    over the shards with ``pmax``), so a shard sees the values of the
+    unsharded QAT forward; int8-backed leaves with ``scales`` (by block
+    path) dequantize with their per-block scale. Activation taps run on
+    the replicated activations, as unsharded.
+    """
+
+    def __init__(self, mesh, lead, shards: Mapping[str, Any],
+                 strategy: str = "tp",
+                 weight_levels: Optional[Mapping[str, Any]] = None,
+                 act_levels: Optional[Mapping[str, Any]] = None,
+                 scales: Optional[Mapping[str, torch.Tensor]] = None,
+                 dtype=None, scope_prefix: str = ""):
+        super().__init__(weight_levels or {}, act_levels or {}, scope_prefix)
+        if strategy not in ("tp", "fsdp"):
+            raise ValueError(f"strategy must be tp|fsdp, got {strategy!r}")
+        self.mesh = mesh
+        self.lead = tuple(lead)
+        self.shards = dict(shards)
+        self.strategy = strategy
+        self.scales = dict(scales) if scales else {}
+        self.dtype = dtype
+        self.row = (next(g for g in mesh.groups(mesh.coords(), "model")
+                         if self.lead in g)
+                    if "model" in mesh.shape else [self.lead])
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.device(self.lead)
+
+    def leaf(self, path: str):
+        """The sharded leaf at a block path (a hybrid's shared block is
+        stored once, whatever its application's scope)."""
+        st = self.shards.get(path)
+        if st is None:
+            st = self.shards.get(re.sub(r"(^|/)shared/\d+/", r"\1shared/", path))
+        return st
+
+    @staticmethod
+    def model_dim(st) -> Optional[int]:
+        """The dim of ``st`` split over "model" (None: replicated)."""
+        return st.axis_dim("model")
+
+    def _range(self, st):
+        """(lo, hi) of the whole weight over the row's shards."""
+        if self.model_dim(st) is None:
+            w = st.parts[self.lead].detach()
+            return (torch.clamp_max(torch.amin(w), 0.0).to(torch.float32),
+                    torch.clamp_min(torch.amax(w), 0.0).to(torch.float32))
+        neg = {c: -torch.amin(st.parts[c].detach()).to(torch.float32)
+               for c in self.row}
+        pos = {c: torch.amax(st.parts[c].detach()).to(torch.float32)
+               for c in self.row}
+        lo = -self.mesh.pmax(neg, "model")[self.lead]
+        hi = self.mesh.pmax(pos, "model")[self.lead]
+        return torch.clamp_max(lo, 0.0), torch.clamp_min(hi, 0.0)
+
+    def _transform(self, path: str, st):
+        """The weight transform of the block at ``path``, applied to each
+        of its parts: the int8 dequant, QAT's fake quant on the whole
+        weight's grid, or None (the parts as they are)."""
+        s = self.scales.get(path)
+        if s is not None and st.dtype == torch.int8:
+            return lambda w: (w.to(torch.float32) * s.to(w.device)).to(self.dtype)
+        lv = self._lookup(self.weight_levels, path)
+        if lv is None:
+            return None
+        lo, hi = self._range(st)
+        return lambda w: _dynamic_fake_quant_ste(
+            w, torch.as_tensor(lv).to(w.device), lo.to(w.device), hi.to(w.device))
+
+    def parts(self, path: str, st, coords=None) -> Dict[Any, torch.Tensor]:
+        """The (transformed) parts of the block at ``path`` on ``coords``
+        (default: the row's shards)."""
+        f = self._transform(path, st)
+        cs = self.row if coords is None else coords
+        return {c: st.parts[c] if f is None else f(st.parts[c]) for c in cs}
+
+    def whole(self, path: str, st) -> torch.Tensor:
+        """The whole (transformed) weight on the lead shard: its lead part
+        when replicated over "model", else all-gathered at use."""
+        dim = self.model_dim(st)
+        if dim is None:
+            return self.parts(path, st, [self.lead])[self.lead]
+        return self.mesh.all_gather(self.parts(path, st), "model",
+                                    dim=dim)[self.lead]
+
+    def _mode(self, st) -> str:
+        dim = self.model_dim(st)
+        if dim is None:
+            return "whole"
+        if self.strategy == "tp" and dim == st.ndim - 1:
+            return "col"
+        if self.strategy == "tp" and dim == st.ndim - 2:
+            return "row"
+        return "gather"
+
+    def qw(self, name: str, w):
+        path = self.path(name)
+        st = self.leaf(path)
+        return w if st is None else self.whole(path, st)
+
+    def _product(self, path, st, x, op):
+        mode = self._mode(st)
+        if mode in ("whole", "gather"):
+            return op(x, self.whole(path, st))
+        parts = self.parts(path, st)
+        if mode == "col":
+            ys = {c: op(x.to(w.device), w) for c, w in parts.items()}
+            return self.mesh.all_gather(ys, "model", dim=-1)[self.lead]
+        kl = st.shape[-2] // len(self.row)
+        ys = {c: op(x[..., i * kl:(i + 1) * kl].to(parts[c].device), parts[c])
+              for i, c in enumerate(self.row)}
+        # rpr-ok: RPR002 training-path fp partials of disjoint K slices, folded in shard order (not under the serving exactness contract)
+        return self.mesh.psum(ys, "model")[self.lead]
+
+    def matmul(self, name: str, x: torch.Tensor, w) -> torch.Tensor:
+        path = self.path(name)
+        st = self.leaf(path)
+        if st is None:
+            return super().matmul(name, x, w)
+        return self._product(path, st, x, lambda a, b: a @ b)
+
+    def expert_matmul(self, name: str, buf: torch.Tensor, w,
+                      counts: torch.Tensor) -> torch.Tensor:
+        path = self.path(name)
+        st = self.leaf(path)
+        if st is None:
+            return super().expert_matmul(name, buf, w, counts)
+        return self._product(path, st, buf,
+                             lambda a, b: torch.einsum("ecd,edf->ecf", a, b))
+
+    def expert_slab(self, name: str, c) -> torch.Tensor:
+        """Model shard ``c``'s slab of the expert stack ``name``: its part
+        when the stack is split over experts, else its experts' rows of
+        the gathered stack."""
+        path = self.path(name)
+        st = self.leaf(path)
+        e_dim = st.ndim - 3
+        if self.model_dim(st) == e_dim:
+            return self.parts(path, st, [c])[c]
+        full = self.whole(path, st)
+        el = full.shape[e_dim] // len(self.row)
+        i = self.row.index(c)
+        return full.narrow(e_dim, i * el, el).to(self.mesh.device(c))
+
+    def shard_weight(self, name: str, c, dim: int) -> torch.Tensor:
+        """Model shard ``c``'s slice along ``dim`` of the 2-D weight
+        ``name`` (its part when so laid out, else cut from the gathered
+        weight)."""
+        path = self.path(name)
+        st = self.leaf(path)
+        if self.model_dim(st) == dim:
+            return self.parts(path, st, [c])[c]
+        full = self.whole(path, st)
+        n = full.shape[dim] // len(self.row)
+        i = self.row.index(c)
+        return full.narrow(dim, i * n, n).to(self.mesh.device(c))
+
+
+class ShardedRows:
+    """An embedding table split over "model" on its last dim, as the
+    model reads it: ``table[ids]`` looks each shard's slice up on its
+    device and all-gathers the (..., D/m) rows; ``table[cb]`` (an int,
+    the audio family's codebook) selects a sub-table."""
+
+    def __init__(self, ctx: MeshContext, parts: Dict[Any, torch.Tensor]):
+        self._ctx = ctx
+        self._parts = parts
+
+    @property
+    def dtype(self):
+        return next(iter(self._parts.values())).dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self._ctx.device
+
+    def __getitem__(self, idx):
+        if isinstance(idx, int):
+            return ShardedRows(self._ctx, {c: p[idx] for c, p in self._parts.items()})
+        rows = {c: p[idx.to(p.device)] for c, p in self._parts.items()}
+        return self._ctx.mesh.all_gather(rows, "model", dim=-1)[self._ctx.lead]

@@ -53,6 +53,7 @@ from repro_torch.models.context import Context, QATContext
 from repro_torch.models.layers import init_mlp, init_norm, mlp_apply, rmsnorm
 from repro_torch.models.mamba2 import init_mamba2, mamba2_apply, mamba2_decode
 from repro_torch.models.moe import init_moe, moe_apply
+from repro_torch.models.partition import constrain
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
@@ -133,6 +134,7 @@ def _attn_mlp_block(x, bp, cfg: ModelConfig, ctx, positions=None):
     with ctx.scope("attn"):
         h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
         x = x + attention_apply(h, bp["attn"], cfg, ctx, positions)
+    x = constrain(x, "batch", "seq", None)
     if cfg.family == "moe":
         with ctx.scope("moe"):
             h = rmsnorm(x, bp["ln2"], cfg.norm_eps)
@@ -142,14 +144,14 @@ def _attn_mlp_block(x, bp, cfg: ModelConfig, ctx, positions=None):
         with ctx.scope("mlp"):
             h = rmsnorm(x, bp["ln2"], cfg.norm_eps)
             x = x + mlp_apply(h, bp["mlp"], cfg.act, ctx)
-    return x, aux
+    return constrain(x, "batch", "seq", None), aux
 
 
 def _mamba_block(x, bp, cfg: ModelConfig, ctx):
     with ctx.scope("mixer"):
         h = rmsnorm(x, bp["ln"], cfg.norm_eps)
         x = x + mamba2_apply(h, bp["mixer"], cfg, ctx)
-    return x
+    return constrain(x, "batch", "seq", None)
 
 
 def _mamba_block_decode(x, bp, cfg: ModelConfig, ctx, state):
@@ -269,7 +271,7 @@ def embed_inputs(params, inputs: Dict[str, torch.Tensor], cfg: ModelConfig,
     if cfg.family == "vlm":
         img = ctx.tap("image_embed", inputs["image_embed"].to(x.dtype))
         x = torch.cat([img, x], dim=1)
-    return ctx.tap("embed_out", x)
+    return constrain(ctx.tap("embed_out", x), "batch", "seq", None)
 
 
 def split_codebooks(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -283,7 +285,8 @@ def split_codebooks(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def logits_from_hidden(params, x, cfg: ModelConfig, ctx) -> torch.Tensor:
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return split_codebooks(ctx.matmul("head", x, params["head"]), cfg)
+    logits = split_codebooks(ctx.matmul("head", x, params["head"]), cfg)
+    return constrain(logits, "batch", None, *(None,) * (logits.ndim - 3), "vocab")
 
 
 def forward(params, inputs: Dict[str, torch.Tensor], cfg: ModelConfig,

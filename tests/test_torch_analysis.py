@@ -14,7 +14,7 @@ reference's (``tests/test_analysis.py``), case by case, on the CPU.
   * ``launch.roofline`` — ``param_counts`` and ``model_flops`` equal to
     the reference's on every architecture and shape;
   * the shipped tree — lint clean, ``run_all(device="cpu")`` clean with
-    the ``moe-ep`` note, the CLI in a subprocess.
+    the ``moe-ep`` target, the CLI in a subprocess.
 
 The reference's own float64, callback and fp-psum fixtures fail under
 the installed JAX; their counterparts here hold the port's checker to
@@ -455,21 +455,40 @@ def test_roofline_terms_on_the_h100_peaks():
 # ---------------------------------------------------------------------------
 
 def test_run_all_in_process_clean_on_cpu():
-    """Every pass in process, the dispatch targets on the CPU: no error;
-    the expert-parallel target is skipped with an RPR100 info note, never
-    silently; every engine variant's burst step ran and none of its ops
-    synchronizes."""
+    """Every pass in process, the dispatch targets on the CPU: no error
+    and no skipped target (the expert-parallel one runs); every engine
+    variant's burst step ran and none of its ops synchronizes."""
     from repro_torch.analysis.dispatch_check import ENGINE_VARIANTS
     stats = {}
     rep = run_all(device="cpu", stats=stats)
     assert rep.exit_code() == 0, "\n".join(f.render() for f in rep.errors)
     assert [(f.code, f.severity, f.where) for f in rep.findings
-            if f.severity == "info"] == [("RPR100", "info", "engine[moe-ep]")]
+            if f.severity == "info"] == []
     hot = sorted(name for name, st in stats.items() if st["hot"])
     assert len(hot) == 3 + len(ENGINE_VARIANTS)
     assert "engine[spec-paged].spec_step" in hot
     assert "engine[sharded].engine_step" in hot
+    assert "engine[moe-ep].engine_step" in hot
     assert all(st["ops"] > 0 for st in stats.values())
+
+
+def test_moe_ep_target_is_the_references_and_runs_clean():
+    """``engine[moe-ep]`` is the reference checker's target: the deepseek
+    smoke engine at W4 (group 8, int8_compute) on a two-shard tp mesh,
+    its expert stacks planned "ep"; its burst step runs on the CPU with
+    no finding and no synchronizing op."""
+    from repro_torch.analysis import dispatch_check
+    from repro_torch.launch.mesh import TPMesh
+    eng = dispatch_check.smoke_engine("moe-ep", CPU)
+    assert eng.cfg.name.startswith("deepseek") and eng.ecfg.int8_compute
+    assert isinstance(eng.ecfg.mesh, TPMesh) and eng.ecfg.mesh.size == 2
+    ep = sorted(k for k, v in eng._shard_plan.items() if v == "ep")
+    assert ep and all(k.split("/")[-1] in ("w_up", "w_gate", "w_down") for k in ep)
+    stats = {}
+    found = dispatch_check.run(device=CPU, variants=("moe-ep",), stats=stats)
+    assert [f for f in found if f.severity != "info"] == [], found
+    assert stats["engine[moe-ep].engine_step"]["hot"]
+    assert stats["engine[moe-ep].engine_step"]["ops"] > 0
 
 
 def _cli(*args):

@@ -154,3 +154,59 @@ def test_port_restores_reference_checkpoints(tmp_path, dtype):
                                       np.asarray(a.astype(jnp.float32)))
     np.testing.assert_array_equal(back.opt.m["embed"].numpy(),
                                   np.asarray(jstate.opt.m["embed"]))
+
+
+def test_elastic_restore_across_meshes(tmp_path):
+    """A tree sharded 8 ways over "data" is saved whole; restored with
+    ``shardings=`` onto a (2, 2) ("data", "model") mesh under spec
+    ("model", "data") its values are equal and each shard holds the
+    slice the spec says (the reference's elastic scale-down). Without
+    ``shardings`` restore returns plain tensors, as before."""
+    from repro_torch.launch.mesh import NamedSharding, P, ShardedTensor, make_mesh, place
+    tree = {"w": torch.arange(64, dtype=torch.float32).reshape(8, 8)}
+    mesh8 = make_mesh((8,), ("data",), device="cpu")
+    sharded = place(tree, {"w": NamedSharding(mesh8, P("data", None))})
+    assert sharded["w"].parts[(3,)].shape == (1, 8)
+    ck = Checkpointer(str(tmp_path))
+    ck.save(5, sharded)
+    mesh4 = make_mesh((2, 2), ("data", "model"), device="cpu")
+    restored = ck.restore(5, tree, {"w": NamedSharding(mesh4, P("model", "data"))})
+    st = restored["w"]
+    assert isinstance(st, ShardedTensor) and st.sharding.spec == P("model", "data")
+    assert torch.equal(st.full(), tree["w"])
+    for (d, m), part in st.parts.items():
+        assert torch.equal(part, tree["w"][4 * m:4 * m + 4, 4 * d:4 * d + 4])
+    plain = ck.restore(5, tree)
+    assert torch.equal(plain["w"], tree["w"]) and not isinstance(plain["w"], ShardedTensor)
+
+
+def test_reference_checkpoint_restores_onto_a_mesh(tmp_path):
+    """A checkpoint the reference writes restores onto a port mesh: the
+    TrainState's params laid out by the (2, 2) mesh's specs, the moments
+    split further over "data" (ZeRO-1), every value equal."""
+    from repro_torch.launch.mesh import NamedSharding, P, make_mesh
+    from repro_torch.launch.steps import gather
+    rng = np.random.default_rng(3)
+    jp = {"embed": jnp.asarray(rng.normal(size=(12, 8)), jnp.float32),
+          "w_up": jnp.asarray(rng.normal(size=(8, 16)), jnp.float32)}
+    jstate = JTrainState(jp, j_init_adam(jp))
+    jstate = jstate._replace(opt=jstate.opt._replace(
+        step=jnp.int32(3), m=jax.tree.map(lambda a: a - 0.25, jstate.opt.m)))
+    JCheckpointer(str(tmp_path)).save(3, jstate)
+    tp = {"embed": torch.zeros(12, 8), "w_up": torch.zeros(8, 16)}
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    p_sh = {"embed": NamedSharding(mesh, P(None, "model")),
+            "w_up": NamedSharding(mesh, P(None, "model"))}
+    m_sh = {"embed": NamedSharding(mesh, P("data", "model")),
+            "w_up": NamedSharding(mesh, P("data", "model"))}
+    opt_sh = type(init_adam(tp))(NamedSharding(mesh, P()), m_sh, m_sh)
+    back = Checkpointer(str(tmp_path)).restore(
+        3, TrainState(tp, init_adam(tp)), TrainState(p_sh, opt_sh))
+    assert back.params["w_up"].parts[(1, 1)].shape == (8, 8)
+    assert back.opt.m["embed"].parts[(1, 0)].shape == (6, 4)
+    whole = gather(back)
+    assert int(whole.opt.step) == 3
+    for k in jp:
+        np.testing.assert_array_equal(whole.params[k].numpy(), np.asarray(jp[k]))
+        np.testing.assert_array_equal(whole.opt.m[k].numpy(),
+                                      np.asarray(jstate.opt.m[k]))

@@ -1,8 +1,8 @@
 """The port's EF traces against repro.core.fisher: pytree batches (a
 tuple ``(X, Y)``, as the reference's own tests pass), the per-leaf
 reduction against per-sample ``torch.autograd.grad`` plus the plain
-``ef_sqnorm``, the data-parallel mode on CPU shards, and
-``fisher_trace_exact``."""
+``ef_sqnorm``, the data-parallel mode on CPU shards (a ``TPMesh`` and a
+1-D data ``Mesh``), and ``fisher_trace_exact``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -169,6 +169,29 @@ def test_mesh_matches_no_mesh(shards):
     _close(ef_trace_weights(tl, tp, tb, mesh=mesh, mesh_axis="tp"), want, 1e-5)
     with pytest.raises(ValueError, match="mesh_axis"):
         ef_trace_weights(tl, tp, tb, mesh=mesh, mesh_axis="data")
+
+
+def test_data_mesh_matches_reference():
+    """``ef_trace_weights`` on a 1-D data mesh of 8 CPU shards
+    (``make_mesh((8,), ("data",))``, the reference's sharded test) equals
+    the reference's single-device trace at rtol 1e-5, microbatched within
+    each shard too, and through ``build_report``; ``mesh_axis`` must name
+    the mesh's axis, and a 2-D mesh is refused."""
+    from repro_torch.launch.mesh import make_mesh
+    jp, jb, jl, tp, tb, tl, npb = _mlp(64)
+    want = {k: float(v) for k, v in j_ef(jl, jp, jb).items()}
+    mesh = make_mesh((8,), ("data",), device="cpu")
+    _close(ef_trace_weights(tl, tp, tb, mesh=mesh), want, 1e-5)
+    _close(ef_trace_weights(tl, tp, tb, microbatch=4, mesh=mesh,
+                            mesh_axis="data"), want, 1e-5)
+    rep = build_report(tl, None, None, None, tp, [npb], tolerance=None,
+                       max_batches=1, mesh=mesh, device="cpu")
+    _close(rep.weight_traces, want, 1e-5)
+    with pytest.raises(ValueError, match="mesh_axis"):
+        ef_trace_weights(tl, tp, tb, mesh=mesh, mesh_axis="model")
+    with pytest.raises(ValueError, match="1-D mesh"):
+        ef_trace_weights(tl, tp, tb, mesh=make_mesh((2, 4), ("data", "model"),
+                                                    device="cpu"))
 
 
 def test_fisher_trace_exact_matches_reference():

@@ -36,7 +36,9 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.analysis.findings", "repro_torch.analysis.lint",
             "repro_torch.analysis.bounds", "repro_torch.analysis.dispatch_check",
             "repro_torch.launch.roofline", "repro_torch.paper.run",
-            "repro_torch.paper.table2_rankcorr"} <= set(mods)
+            "repro_torch.paper.table2_rankcorr", "repro_torch.launch.sharding",
+            "repro_torch.launch.pipeline", "repro_torch.models.partition",
+            "repro_torch.optim.compression", "repro_torch.utils.hlo"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
