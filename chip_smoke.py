@@ -129,6 +129,14 @@ Phases, in order; any failure exits non-zero:
      == (1,1), paged_attention launched by every shard; pipeline_apply on
      4 stages == sequential_apply, compressed_psum over 8 shards == its
      arithmetic; the EF traces on a 2-shard data mesh == no mesh;
+  3o. (last) the shape-only dry run (``repro_torch.launch.dryrun``) held
+     against the card (``dryrun_path``): 3n's (2,4) ZeRO-1 train step and
+     w8kv8 decode step run on a meta mesh and on the card, the collective
+     ledger, the FLOPs and the origin shard's argument bytes equal, the
+     predicted one-card peak printed beside the measured one; and
+     llama3_8b's train_4k cell at (16,16) through the cost pair, in a
+     child process on the host beside the build (phase 1), waited for
+     before phase 2: its roofline terms;
   4. print the kernels line and the main-path metrics;
   5. print {"ok": true, "device": {...}} as the last line.
 
@@ -138,6 +146,7 @@ Imports torch and the port only.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -1228,10 +1237,17 @@ def main() -> int:
     log(f"card: {card}")
 
     # ---- phase 1: build ----
+    # 3o (b)'s host-only cell runs in a child beside the build (nvcc's
+    # work, which no phase measures) and is waited for before phase 2
+    dryrun_cell = None if args.kernels_only else start_dryrun_cell()
     t0 = time.perf_counter()
     _build.lib()
     log(f"phase 1: built kernels in {time.perf_counter() - t0:.1f} s "
         f"({_build.BUILD_DIR})")
+    if dryrun_cell is not None:
+        dryrun_cell = finish_dryrun_cell(dryrun_cell)
+        log(f"phase 1: 3o (b)'s dry-run cell done {dryrun_cell['wait_s']:.1f} s "
+            f"after the build")
     ptx = sorted(_build.BUILD_DIR.glob("*/ptxas.log"),
                  key=lambda p: p.stat().st_mtime)
     if ptx:
@@ -1359,6 +1375,13 @@ def main() -> int:
         log(f"phase 3n: the (data, model) mesh in {time.perf_counter() - t0:.1f} s, "
             f"peak device memory {mp3n['peak_mem_gb']:.1f} GB")
         log(json.dumps({"mesh_path": mp3n}))
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        result["dryrun_path"] = dp3o = dryrun_path(dryrun_cell)
+        log(f"phase 3o: the dry run against the card in "
+            f"{time.perf_counter() - t0:.1f} s")
+        log(json.dumps({"dryrun_path": dp3o}))
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1370,7 +1393,7 @@ def main() -> int:
              + [tpp["launches"], spp["launches"], op["launches"],
                 cp["launches"], lp["launches"], tp["launches"], hp["launches"]]
              + list(rp["launches"].values()) + list(fp["launches"].values())
-             + [pp["launches"], mp3n["launches"]])
+             + [pp["launches"], mp3n["launches"], dp3o["launches"]])
     log(json.dumps({"kernels": kernels_line(rows, paths)}))
     for arch, mp in mps.items():
         log(f"[{card}] {arch} ({mp['layers']} layers): report "
@@ -1484,6 +1507,7 @@ def main() -> int:
     log_paper(card, pp)
     log_analysis(card, ap)
     log_mesh(card, mp3n)
+    log_dryrun(card, dp3o)
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -1628,6 +1652,9 @@ PATH_KERNELS = {"dense": ("ef_sqnorm", "qmm", "paged_attention"),
                 # phase 3n: the (data, model) mesh (the w8kv8 decode's
                 # cache reads, the data-mesh EF traces)
                 "mesh": ("paged_attention", "ef_sqnorm"),
+                # phase 3o: the dry run against the card (the w8kv8
+                # decode's cache reads)
+                "dryrun": ("paged_attention",),
                 # phase 3i: obs-enabled serving, by route
                 "obs": ("qmm", "paged_attention"),
                 "obs_moe": ("qmm", "grouped_qmm", "paged_attention"),
@@ -4308,6 +4335,228 @@ def log_mesh(card: str, mp: dict) -> None:
         f"max rel err {ef['max_rel_err']:.2e}; {ef['mesh_s']:.2f} s vs "
         f"{ef['plain_s']:.2f} s; phase 3n seconds: " + ", ".join(
             f"{k} {v:.1f}" for k, v in mp["seconds"].items()))
+
+
+# phase 3o: the shape-only dry run (repro_torch.launch.dryrun) held
+# against the card, on 3n's steps; (b) runs the production cell below
+# through the cost pair in a child process on the host beside the build
+DRYRUN_CELL = ("llama3_8b", "train_4k")
+_CHILDREN: list = []
+
+
+def _stop_children() -> None:
+    """Kill every child process this script started that still runs."""
+    for proc in _CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+atexit.register(_stop_children)
+
+
+def dryrun_cell_child(out: str) -> None:
+    """Run as 3o (b)'s child: DRYRUN_CELL's cost pair on the (16,16)
+    meta mesh (``dryrun.pair_terms``; no full-depth run, so no memory),
+    on the host, its roofline terms, ledger and wall written to
+    ``out``."""
+    torch.set_num_threads(1)
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    arch, shape = DRYRUN_CELL
+    t0 = time.perf_counter()
+    mesh = dryrun.meta_mesh()
+    pair = dryrun.pair_terms(get_config(arch), SHAPES[shape], mesh)
+    Path(out).write_text(json.dumps({
+        "arch": arch, "shape": shape, "mesh": "16x16", "chips": mesh.size,
+        "roofline": pair["terms"].to_dict(),
+        "collective_bytes": pair["coll"].bytes_by_kind,
+        "wall_s": time.perf_counter() - t0}))
+
+
+def start_dryrun_cell() -> tuple:
+    import os
+    import tempfile
+    fd, out = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.dryrun_cell_child({out!r})"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=str(ROOT))
+    _CHILDREN.append(proc)
+    return time.perf_counter(), proc, out
+
+
+def finish_dryrun_cell(started) -> dict:
+    """3o (b): wait for the child; its roofline terms finite and
+    positive, its FLOPs at least the model's useful FLOPs."""
+    t0, proc, out = started
+    t_wait = time.perf_counter()
+    _, stderr = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"3o (b): the dry-run child exited {proc.returncode}:"
+                             f"\n{stderr[-3000:]}")
+    res = json.loads(Path(out).read_text())
+    Path(out).unlink()
+    rl = res["roofline"]
+    terms = [rl[k] for k in ("compute_s", "memory_s", "collective_s")]
+    if not all(math.isfinite(t) and t > 0 for t in terms) or rl["useful_ratio"] > 1.0:
+        raise AssertionError(f"3o (b): {res}")
+    return {**res, "since_start_s": time.perf_counter() - t0,
+            "wait_s": time.perf_counter() - t_wait}
+
+
+def _flops_and_ledger(mesh, fn, args):
+    """Run ``fn(*args)`` on the card under ``FlopCounterMode`` and the
+    mesh's recorder; the FLOPs of each ``paged_attention`` launch (which
+    the counter cannot see) added by the plain version's formula."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.utils.hlo import CollectiveStats
+
+    kernel_flops = []
+    launch = pa._launch
+
+    def counted(q, kp, *rest):
+        kernel_flops.append(pa.flops(*q.shape, rest[2].shape[1], kp.shape[1]))
+        return launch(q, kp, *rest)
+
+    stats = CollectiveStats()
+    fc = FlopCounterMode(display=False)
+    pa._launch = counted
+    try:
+        with mesh.recording(stats), fc:
+            out = fn(*args)
+        torch.cuda.synchronize()
+    finally:
+        pa._launch = launch
+    return out, stats, fc.get_total_flops() + sum(kernel_flops), len(kernel_flops)
+
+
+def dryrun_step(dev, kind: str) -> dict:
+    """3o (a): 3n's (2,4) ZeRO-1 train step or w8kv8 decode step run once
+    on a meta mesh through ``dryrun._analyze`` and once on the card from
+    seeded params: the ledger's bytes and counts by kind and the FLOPs
+    equal, the origin shard's argument bytes equal the ``nbytes`` of its
+    placed parts on the card. The one-card peak predicted as: the
+    caller's whole arguments (resident before the step places them) +
+    every shard's placed parts + the meta run's live intermediates
+    (``temp_bytes_run``; one row at a time), beside
+    ``max_memory_allocated``."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.sharding import ShardOptions
+    from repro_torch.launch.steps import (
+        TrainState, build_step, place, quantize_decode_params)
+    from repro_torch.models.decode import init_decode_state
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.adamw import init_adam
+
+    cfg = _mesh_cfg("internlm2_1_8b")
+    if kind == "train":
+        shape = ShapeSpec("t", MESH_SEQ, MESH_BATCH, "train")
+        opts = ShardOptions(zero1=True)
+    else:
+        shape = ShapeSpec("d", MESH_DECODE_LEN, MESH_BATCH, "decode")
+        opts = ShardOptions(decode_quant="w8kv8")
+    t0 = time.perf_counter()
+    meta_build = dryrun._lower(cfg, shape, Mesh.on_device(MESH_SHAPE, MESH_AXES, "meta"),
+                               opts)
+    meta = dryrun._analyze(meta_build)
+    meta_s = time.perf_counter() - t0
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = Mesh.on_device(MESH_SHAPE, MESH_AXES, dev)
+    sb = build_step(cfg, shape, mesh, opts)
+    params = init_params(cfg, seed=0, device=dev)
+    batch = _lm_batch(cfg, dev)
+    if kind == "train":
+        args = (TrainState(params, init_adam(params)), batch)
+    else:
+        qp, _ = quantize_decode_params(params, cfg)
+        del params
+        args = (qp, init_decode_state(cfg, MESH_BATCH, MESH_DECODE_LEN, device=dev,
+                                      kv_dtype=torch.int8), batch["tokens"][:, :1])
+    placed = tuple(place(a, s) for a, s in zip(args, sb.shardings))
+    card_args = dryrun.origin_bytes(placed)
+    del placed
+    caller = dryrun.origin_bytes(args)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, stats, flops, paged = _flops_and_ledger(mesh, sb.fn, args)
+    card_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    del out, args
+    if meta["coll"].bytes_by_kind != stats.bytes_by_kind or \
+            meta["collective_counts"] != stats.count_by_kind:
+        raise AssertionError(f"3o {kind}: meta ledger {meta['coll']} != card {stats}")
+    if meta["totals"]["flops"] != flops:
+        raise AssertionError(f"3o {kind}: meta FLOPs {meta['totals']['flops']} != "
+                             f"card {flops}")
+    if meta["mem"]["argument_bytes"] != card_args:
+        raise AssertionError(f"3o {kind}: meta argument bytes "
+                             f"{meta['mem']['argument_bytes']} != card {card_args}")
+    predicted = caller + dryrun.one_card_bytes(meta_build, meta["totals"]["temp_bytes_run"])
+    return {"kind": kind, "arch": cfg.name, "layers": cfg.num_layers,
+            "collective_bytes": dict(stats.bytes_by_kind),
+            "collective_counts": dict(stats.count_by_kind),
+            "flops": flops, "paged_attention_launches": paged,
+            "argument_bytes": card_args, "memory": meta["mem"],
+            "temp_bytes_run": meta["totals"]["temp_bytes_run"],
+            "caller_bytes": caller, "predicted_peak_gb": predicted / 1e9,
+            "measured_peak_gb": peak / 1e9, "meta_s": meta_s, "card_s": card_s}
+
+
+def dryrun_path(cell: dict, dev=None) -> dict:
+    """Phase 3o: the dry run held against the card (a) on 3n's train and
+    w8kv8 decode steps, and (b) the production cell's roofline terms
+    (``cell``: ``finish_dryrun_cell``'s, from the child that ran beside
+    the build). Counters set to 0 just before, read just after."""
+    dev = dev or torch.device("cuda", 0)
+    sec: dict = {}
+    res = {"seconds": sec}
+    reset_counts()
+    for kind in ("train", "decode"):
+        t0 = time.perf_counter()
+        res[kind] = dryrun_step(dev, kind)
+        sec[kind] = time.perf_counter() - t0
+    res["launches"] = read_counts()
+    for name in PATH_KERNELS["dryrun"]:
+        if res["launches"][name] <= 0:
+            raise AssertionError(f"3o: kernel {name} was not launched")
+    res["cell"] = cell
+    sec["cell_wait"] = cell["wait_s"]
+    return res
+
+
+def log_dryrun(card: str, dp: dict) -> None:
+    """Phase 3o's lines."""
+    for kind in ("train", "decode"):
+        d = dp[kind]
+        log(f"[{card}] 3o {d['kind']} {d['arch']} ({d['layers']} layers, fp32, "
+            f"{list(MESH_SHAPE)}): meta == card: collective bytes "
+            f"{d['collective_bytes']} counts {d['collective_counts']}, FLOPs "
+            f"{d['flops']:.6g} ({d['paged_attention_launches']} paged_attention "
+            f"launches by formula), origin argument bytes {d['argument_bytes']}; "
+            f"one-card peak predicted {d['predicted_peak_gb']:.2f} GB (caller "
+            f"{d['caller_bytes'] / 1e9:.2f} + shards' parts + temp "
+            f"{d['temp_bytes_run'] / 1e9:.2f}), measured {d['measured_peak_gb']:.2f} "
+            f"GB; meta run {d['meta_s']:.2f} s, card run {d['card_s']:.2f} s")
+    c = dp["cell"]
+    rl = c["roofline"]
+    log(f"[{card}] 3o cell {c['arch']} {c['shape']} {c['mesh']} ({c['chips']} "
+        f"shards on meta, through the pair, on the host): compute "
+        f"{rl['compute_s']:.4f} s, memory {rl['memory_s']:.4f} s, collective "
+        f"{rl['collective_s']:.4f} s, bottleneck {rl['bottleneck']}, useful "
+        f"{rl['useful_ratio']:.3f}, mfu {rl['mfu']:.3f}; wall "
+        f"{c['wall_s']:.1f} s; phase 3o seconds: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in dp["seconds"].items()))
 
 
 HESSIAN_LAYERS = 4      # depth of phase 3h's model (full width)

@@ -27,6 +27,7 @@ from functools import lru_cache
 from typing import NamedTuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import ref
 from repro_torch.qtensor import packed_size
@@ -94,7 +95,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     with Dh' = packed_size(Dh, bits); table: (B, NP) page ids (>= P are
     clipped, then masked); lengths: (B,) valid token counts; k_scale /
     v_scale: (P, KV) fp32 when bits < 16. Returns (B, KV, G, Dh) in q's
-    dtype. A CPU tensor takes the plain version; a CUDA tensor the kernel."""
+    dtype. A CPU tensor takes the plain version; a CUDA tensor the kernel;
+    meta tensors only its checks (see ``attend``)."""
     return attend(q, k_pages, v_pages, table, lengths, 0, k_scale, v_scale,
                   bits)
 
@@ -102,15 +104,30 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
 def attend(q, k_pages, v_pages, table, lengths, offset: int, k_scale=None,
            v_scale=None, bits: int = 16) -> torch.Tensor:
     """``paged_attention`` with valid token counts ``lengths + offset``
-    (``ops.paged_attention`` passes positions with offset 1)."""
+    (``ops.paged_attention`` passes positions with offset 1).
+
+    Every input on ``meta`` (a shape-only run, ``launch.dryrun``) takes
+    the CUDA route's checks and returns an empty meta output of its shape
+    and dtype, computing nothing: through the ``paged_attention_shape``
+    op, whose registered FLOP formula (``flops``) counts the plain
+    version's FLOPs. Meta mixed with real tensors raises."""
     b, kvh, g, dh = q.shape
     if q.device.type == "cpu":
+        if any(t is not None and t.is_meta for t in
+               (k_pages, v_pages, table, lengths, k_scale, v_scale)):
+            raise ValueError("paged_attention: meta tensors mixed with real ones")
         pos = lengths if offset == 1 else lengths + (offset - 1)
         o = ref.paged_attention(q.reshape(b, 1, kvh * g, dh), k_pages, v_pages,
                                 table, pos, k_scale, v_scale, bits)
         return o.to(q.dtype)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"paged_attention: unsupported device {q.device}")
+    if q.is_meta and not all(t is None or t.is_meta for t in
+                             (k_pages, v_pages, table, lengths, k_scale, v_scale)):
+        raise ValueError("paged_attention: meta tensors mixed with real ones")
+    if k_pages.device != q.device or v_pages.device != q.device:
+        raise ValueError(f"paged_attention: pages on {k_pages.device} / "
+                         f"{v_pages.device}, q on {q.device}")
     num_pages, page, kvp, dhp = k_pages.shape
     if kvp != kvh or v_pages.shape != k_pages.shape:
         raise ValueError(f"paged_attention: pages {tuple(k_pages.shape)} / "
@@ -144,6 +161,8 @@ def attend(q, k_pages, v_pages, table, lengths, offset: int, k_scale=None,
     if plan.smem > MAX_SMEM or plan.ctas > MAX_GRID_Y:
         raise ValueError(f"paged_attention: G={g} x Dh={dh} over {np_} pages "
                          "does not fit the kernel's launch")
+    if q.device.type == "meta":
+        return torch.ops.repro_torch.paged_attention_shape(q, table, page)
     if q.stride()[1:] != (g * dh, dh, 1):
         q = q.contiguous()
     if table.stride(1) != 1:
@@ -167,6 +186,30 @@ def attend(q, k_pages, v_pages, table, lengths, offset: int, k_scale=None,
     _launch(q, k_pages, v_pages, kvmode, table, lengths, offset, ks, vs, out,
             part, tickets, plan, num_pages)
     return out
+
+
+def flops(b: int, kvh: int, g: int, dh: int, np_: int, page: int) -> int:
+    """The plain version's FLOPs (its two einsums over every page of the
+    table, as ``FlopCounterMode`` counts them): what a shape-only run
+    counts for one call. The kernel skips pages past a slot's length,
+    and ``FlopCounterMode`` does not see its launch."""
+    return 4 * b * kvh * g * np_ * page * dh
+
+
+@torch.library.custom_op("repro_torch::paged_attention_shape", mutates_args=())
+def _shape_only(q: torch.Tensor, table: torch.Tensor, page: int) -> torch.Tensor:
+    """The meta route's output: only its fake (meta) version runs."""
+    raise RuntimeError("paged_attention_shape takes meta tensors only")
+
+
+@_shape_only.register_fake
+def _(q, table, page):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.paged_attention_shape)
+def _shape_only_flops(q_shape, table_shape, page, *args, **kwargs) -> int:
+    return flops(*q_shape, table_shape[1], page)
 
 
 def _launch(q, kp, vp, kvmode, table, lengths, offset, ks, vs, out, part,

@@ -149,6 +149,9 @@ class Mesh:
         self.axis_names = axes
         self.shape: Dict[str, int] = dict(zip(axes, grid.shape))
         self.recorder = None
+        # told of every collective result that shards on one device share
+        # (``launch.dryrun``: each shard would hold a copy of it)
+        self.share_observer = None
 
     @classmethod
     def on_device(cls, shape: Sequence[int], axes: Sequence[str],
@@ -243,6 +246,8 @@ class Mesh:
             if d not in cache:
                 cache[d] = make(d)
             out[c] = cache[d]
+        if self.share_observer is not None and len(cache) < len(out):
+            self.share_observer(out)
         return out
 
     # -- collectives ---------------------------------------------------------

@@ -15,7 +15,7 @@ arguments by their input shardings); ``gather`` assembles it again.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -194,6 +194,21 @@ def _rows(mesh, batch_ax) -> List[Tuple[Tuple[int, ...], List[Tuple[int, ...]]]]
     return [(g[0], g) for g in groups]
 
 
+# Told which row a step runs (``launch.dryrun``'s memory ledger): each is
+# called with a row's lead as the row starts, and with None after the last.
+ROW_OBSERVERS: List[Callable[[Optional[Tuple[int, ...]]], None]] = []
+
+
+def _each_row(rows):
+    """``rows`` in turn, every one of ``ROW_OBSERVERS`` told which runs."""
+    for lead, group in rows:
+        for obs in ROW_OBSERVERS:
+            obs(lead)
+        yield lead, group
+    for obs in ROW_OBSERVERS:
+        obs(None)
+
+
 def _batch_slice(mesh, batch_ax, lead, batch: Dict[str, torch.Tensor]):
     if batch_ax is None:
         return batch
@@ -314,7 +329,7 @@ def build_train_step(cfg: ModelConfig, shape: ShapeSpec, mesh,
             share[key] = share.get(key, 0) + 1
         losses = {}
         with use_rules(rules):
-            for lead, group in rows:
+            for lead, group in _each_row(rows):
                 ctx = _mesh_ctx(mesh, lead, state.params, opts, qat)
                 inputs = {k: v.to(mesh.device(lead)) for k, v in
                           _batch_slice(mesh, batch_ax, lead, batch).items()}
@@ -473,7 +488,7 @@ def build_prefill_step(cfg: ModelConfig, shape: ShapeSpec, mesh,
         rows = _rows(mesh, batch_ax)
         outs = {}
         with use_rules(rules):
-            for lead, group in rows:
+            for lead, group in _each_row(rows):
                 ctx = _mesh_ctx(mesh, lead, params, opts)
                 inputs = {k: v.to(mesh.device(lead)) for k, v in
                           _batch_slice(mesh, batch_ax, lead, batch).items()}
@@ -622,6 +637,35 @@ def _kv_mode(st) -> str:
     return "heads" if dim == st.ndim - 2 else "seq"
 
 
+def _row_ssm(mesh, group, lead, st):
+    """A row's SSM state (a ``MambaState`` of ``ShardedTensor``s) whole on
+    its lead: ``h``'s head parts all-gathered over "model" where split,
+    the lead's own part otherwise (updated in place there)."""
+    from repro_torch.models.mamba2 import MambaState
+
+    def one(t):
+        dim = t.axis_dim("model")
+        if dim is None:
+            return t.parts[lead]
+        return mesh.all_gather({c: t.parts[c] for c in group}, "model",
+                               dim=dim)[lead]
+
+    return MambaState(*(one(t) for t in st))
+
+
+def _write_ssm(mesh, group, st, row) -> None:
+    """Each shard of ``group`` takes its slice of the row's advanced state
+    ``row`` into its part of ``st``, in place."""
+    for t, new in zip(st, row):
+        dim = t.axis_dim("model")
+        for i, c in enumerate(group):
+            part = t.parts[c]
+            src = new if dim is None else new.narrow(dim, i * part.shape[dim],
+                                                     part.shape[dim])
+            if src is not part:
+                part.copy_(src.to(mesh.device(c)))
+
+
 def build_decode_step(cfg: ModelConfig, shape: ShapeSpec, mesh,
                       opts=None) -> StepBuild:
     """One-token serve step with a ``seq_len``-deep dense KV cache:
@@ -637,16 +681,23 @@ def build_decode_step(cfg: ModelConfig, shape: ShapeSpec, mesh,
     reference, the step dequantizes with the scales of the builder's
     abstract quantization (0.01 a block) unless ``scales`` (the second
     result of ``quantize_decode_params`` on the real params) is given.
-    The ssm and hybrid families are not supported on a mesh."""
+
+    The ssm and hybrid families keep their SSM state as the reference
+    lays it out: ``h`` with its batch over the data axes and its heads
+    over "model" where they divide, ``conv`` with its batch over the
+    data axes. A row's activations are replicated on its lead, so the
+    recurrence runs there: the row's ``h`` parts are all-gathered onto
+    the lead, ``decode_step`` advances the row's whole state, and each
+    shard's heads are written back into its part in place (as ``pos``
+    is). The hybrid's shared-attention cache follows the dense rules
+    (``ShardedKV``); "kv8" quantizes that cache only, the SSM states stay
+    fp32."""
     from repro_torch.launch.mesh import NamedSharding, P
     from repro_torch.launch.sharding import ShardOptions, make_rules, param_pspecs
     from repro_torch.models.attention import KVCache, ShardedKV
     from repro_torch.models.decode import DecodeState, decode_step, init_decode_state
     from repro_torch.models.partition import use_rules
     opts = opts or ShardOptions()
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"build_decode_step: family {cfg.family!r} is not supported on a mesh")
     rules = make_rules(cfg, shape, mesh, opts)
     params = abstract_params(cfg)
     key_scales = None
@@ -676,7 +727,7 @@ def build_decode_step(cfg: ModelConfig, shape: ShapeSpec, mesh,
         rows = _rows(mesh, batch_ax)
         outs = {}
         with use_rules(rules):
-            for lead, group in rows:
+            for lead, group in _each_row(rows):
                 ctx = _mesh_ctx(mesh, lead, params, opts, scales=sc,
                                 dtype=cfg.param_dtype)
                 kv = None
@@ -685,12 +736,16 @@ def build_decode_step(cfg: ModelConfig, shape: ShapeSpec, mesh,
                     kv = KVCache(*(ShardedKV(mesh, group, lead,
                                              {c: t.parts[c] for c in group}, mode)
                                    for t in state.kv))
-                row_state = DecodeState(pos=state.pos.parts[lead], kv=kv)
+                ssm = {f: _row_ssm(mesh, group, lead, getattr(state, f))
+                       for f in ("ssm", "rest") if getattr(state, f) is not None}
+                row_state = DecodeState(pos=state.pos.parts[lead], kv=kv, **ssm)
                 tok = _batch_slice(mesh, batch_ax, lead, {"t": tokens})["t"]
                 logits, new = decode_step(_row_tree(params, ctx, lead), row_state,
                                           tok.to(mesh.device(lead)), cfg, ctx=ctx)
                 for c in group:
                     state.pos.parts[c].copy_(new.pos.to(mesh.device(c)))
+                for f, row in ssm.items():
+                    _write_ssm(mesh, group, getattr(state, f), row)
                 outs[lead] = logits
         return _batch_sharded(mesh, rows, outs, batch_ax), state
 

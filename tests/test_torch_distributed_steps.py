@@ -5,7 +5,8 @@ and against the port's (1,1) mesh and one-device step at the tightest
 tolerance that holds: ``build_train_step`` (ZeRO-1, compressed
 gradients, FSDP, QAT, an MoE model), ``moe_apply_ep`` through the
 prefill step, ``build_prefill_step`` and ``build_decode_step`` at
-w8kv8 on a sequence-sharded and a head-sharded cache. Inputs come from
+w8kv8 on a sequence-sharded and a head-sharded cache, and for the ssm
+and hybrid families against the reference's mesh decode step. Inputs come from
 numpy with a seed; the reference's params go to both sides."""
 import dataclasses
 
@@ -312,7 +313,9 @@ def test_decode_w8kv8_matches_reference():
 def test_build_step_dispatches_and_refuses_recurrent_decode():
     """``build_step`` picks the builder by shape kind; its stand-ins are
     meta tensors (nothing allocated); the audio family's tokens are
-    (B, S, CB) grids; the recurrent families' mesh decode is refused."""
+    (B, S, CB) grids; the recurrent families' mesh decode builds, as the
+    reference's does (it was refused until the port sharded their
+    state), with meta stand-ins of their SSM states."""
     cfg = smoke_config("llama3_8b")
     m = _mesh((1, 2))
     for kind, fn in (("train", "train_step"), ("prefill", "prefill_step"),
@@ -325,8 +328,10 @@ def test_build_step_dispatches_and_refuses_recurrent_decode():
         assert metas and all(t.is_meta for t in metas)
     specs = tsteps.input_specs(smoke_config("musicgen_large"), ShapeSpec("s", 16, 2, "train"))
     assert tuple(specs["tokens"].shape) == (2, 16, smoke_config("musicgen_large").num_codebooks)
-    with pytest.raises(NotImplementedError):
-        tsteps.build_decode_step(smoke_config("mamba2_130m"), ShapeSpec("d", 16, 2, "decode"), m)
+    for arch in ("mamba2_130m", "zamba2_7b"):
+        sb = tsteps.build_decode_step(smoke_config(arch), ShapeSpec("d", 16, 2, "decode"), m)
+        assert sb.fn.__name__ == "serve_step"
+        assert sb.args[1].ssm.h.is_meta and sb.args[1].ssm.h.dtype == torch.float32
 
 
 def _family_inputs(cfg, kind, seed=0):
@@ -391,3 +396,132 @@ def test_train_step_other_families_on_the_mesh(arch):
                                  batch, shape=shape)
     np.testing.assert_allclose(loss4, loss1, rtol=1e-6)
     np.testing.assert_allclose(norm4, norm1, rtol=1e-5)
+
+
+def _unstack_stacks(jtree):
+    """The reference's scan layout (``layers`` (L, ...), the hybrid's
+    ``groups`` (G, period, ...) and ``rest`` (R, ...)) as the unrolled
+    one, in numpy."""
+    out = {}
+    for k, v in jtree.items():
+        if k in ("layers", "rest"):
+            n = jax.tree.leaves(v)[0].shape[0]
+            out[k] = {str(i): jax.tree.map(lambda a, i=i: np.asarray(a[i]), v)
+                      for i in range(n)}
+        elif k == "groups":
+            g, per = jax.tree.leaves(v)[0].shape[:2]
+            out[k] = {str(i): {str(j): jax.tree.map(
+                lambda a, i=i, j=j: np.asarray(a[i, j]), v) for j in range(per)}
+                for i in range(g)}
+        else:
+            out[k] = jax.tree.map(np.asarray, v)
+    return out
+
+
+def _fp_mamba_d(jq, jp):
+    """The reference's int8 tree with the Mamba2 skip scale ``D`` put back
+    in fp: its stacked (L, H) leaf is 2-D, so the reference quantizes it,
+    and the decode then reads the raw int8 values (no scale); the port
+    keeps ``D`` fp32 (``ROADMAP.md`` § C)."""
+    from repro.utils.pytree import map_with_names as j_map
+    fp = dict(j_named(jp))
+    assert all(a.dtype == jnp.int8 for n, a in j_named(jq) if n.endswith("mixer/D"))
+    return j_map(lambda n, a: fp[n] if n.endswith("mixer/D") else a, jq)
+
+
+def _j_state_specs(jcfg, jstate, mshape, opts):
+    from jax.sharding import AbstractMesh
+    jm = AbstractMesh(mshape, ("data", "model"))
+    shape = JShape("d", 16, 4, "decode")
+    sh = jsteps.decode_state_pspecs(jstate, jcfg, shape, jm, opts,
+                                    jsh.make_rules(jcfg, shape, jm, opts))
+    return {n: tuple(s.spec) for n, s in j_named(sh)}
+
+
+def _t_state_specs(sb):
+    return {n: tuple(s.spec) for n, s in tsteps._state_names(sb.shardings[1])}
+
+
+@pytest.mark.parametrize("arch,quant", [("mamba2_130m", None), ("zamba2_7b", None), ("mamba2_130m", "w8"),
+                                        ("zamba2_7b", "w8kv8")])
+def test_recurrent_decode_on_the_mesh_matches_reference(arch, quant):
+    """The ssm and hybrid families' ``build_decode_step`` (R9) on (1,1),
+    (2,2) and (2,4) CPU meshes: greedy tokens over 4 steps equal to the
+    reference's ``build_decode_step`` (its (1,1) mesh, in process), logits
+    within 1e-4 of the reference's relative to its largest (the port's
+    mesh against its own (1,1) within 1e-5: row blocks add fp partials in
+    shard order; the recurrence runs whole on a row's lead), the SSM
+    state's and the shared block's cache specs
+    equal to the reference's ``decode_state_pspecs``, and the state
+    advanced in place: the (2,4) mesh's gathered state equals the (1,1)
+    mesh's. "w8" quantizes the weights (payloads byte-identical to the
+    reference's; both sides at ``build_decode_step``'s abstract 0.01 scales), "kv8"
+    also the hybrid's shared-block cache; the SSM states stay fp32."""
+    jcfg = j_smoke(arch)
+    cfg = smoke_config(arch)
+    b, t = 4, 16
+    jp = j_init(jcfg, jax.random.key(3))
+    params = _to_torch(_unstack_stacks(jp), cfg)
+    jopts = jsh.ShardOptions(decode_quant=quant)
+    jq = jp
+    if quant:
+        # int8 payloads byte-identical to the reference's; both sides
+        # decode at build_decode_step's abstract 0.01 scales
+        jq, _ = jsteps.quantize_decode_params(jp, jcfg)
+        jq = _fp_mamba_d(jq, jp)
+        params, _ = tsteps.quantize_decode_params(params, cfg)
+        want_q = dict(j_named(_unstack_stacks(jq)))
+        for n, a in named_leaves(params):
+            if a.dtype == torch.int8:
+                np.testing.assert_array_equal(a.numpy(), want_q[n], err_msg=n)
+    jb = jsteps.build_decode_step(jcfg, JShape("d", t, b, "decode"),
+                                  j_make_mesh((1, 1), ("data", "model")), jopts)
+    st = j_init_state(jcfg, b, t)
+    if quant and st.kv is not None:
+        st = st._replace(kv=jax.tree.map(lambda c: c.astype(jnp.int8), st.kv))
+    tok0 = np.random.default_rng(3).integers(0, cfg.vocab_size, (b, 1)).astype(np.int32)
+    tok, want_tokens, want_logits = jnp.asarray(tok0), [], []
+    for _ in range(DECODE_STEPS):
+        logits, st = jb.fn(jq, st, tok)
+        want_logits.append(np.asarray(logits, np.float32))
+        tok = jnp.argmax(logits[:, -1], -1)[:, None].astype(jnp.int32)
+        want_tokens.append(np.asarray(tok)[:, 0].tolist())
+    jstate = j_init_state(jcfg, b, t, abstract=True)
+
+    got = {}
+    for ms in ((1, 1), (2, 2), (2, 4)):
+        sb = tsteps.build_decode_step(cfg, ShapeSpec("d", t, b, "decode"), _mesh(ms),
+                                      tsh.ShardOptions(decode_quant=quant))
+        specs = _t_state_specs(sb)
+        want_specs = _j_state_specs(jcfg, jstate, ms, jopts)
+        assert {n: tuple(_norm_spec(e) for e in s) for n, s in specs.items()} == \
+            {n: tuple(_norm_spec(e) for e in s) for n, s in want_specs.items()}, ms
+        state = init_decode_state(cfg, b, t, device="cpu",
+                                  kv_dtype=torch.int8 if quant else None)
+        assert state.ssm.h.dtype == torch.float32
+        tk, toks, lg = torch.from_numpy(tok0), [], []
+        for _ in range(DECODE_STEPS):
+            logits, state = sb.fn(params, state, tk)
+            full = logits.full()
+            lg.append(full.numpy())
+            tk = torch.argmax(full[:, -1], -1)[:, None].to(torch.int32)
+            toks.append(tk[:, 0].tolist())
+        assert toks == want_tokens, (ms, toks, want_tokens)
+        scale = max(np.abs(w).max() for w in want_logits)
+        for a, w in zip(lg, want_logits):
+            assert np.abs(a - w).max() / scale < 1e-4, ms
+        got[ms] = (lg, tsteps.gather(state))
+    for ms in ((2, 2), (2, 4)):
+        for a, w in zip(got[ms][0], got[(1, 1)][0]):
+            assert np.abs(a - w).max() / np.abs(w).max() < 1e-5, ms
+        for (n, a), (_, w) in zip(tsteps._state_names(got[ms][1]),
+                                  tsteps._state_names(got[(1, 1)][1])):
+            for x, y in zip(a if isinstance(a, tuple) else (a,),
+                            w if isinstance(w, tuple) else (w,)):
+                assert torch.allclose(x.float(), y.float(), rtol=1e-4, atol=1e-5), (ms, n)
+
+
+def _norm_spec(e):
+    if isinstance(e, (list, tuple)):
+        return tuple(e) if len(e) > 1 else (e[0] if e else None)
+    return e

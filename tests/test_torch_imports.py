@@ -38,7 +38,8 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.launch.roofline", "repro_torch.paper.run",
             "repro_torch.paper.table2_rankcorr", "repro_torch.launch.sharding",
             "repro_torch.launch.pipeline", "repro_torch.models.partition",
-            "repro_torch.optim.compression", "repro_torch.utils.hlo"} <= set(mods)
+            "repro_torch.optim.compression", "repro_torch.utils.hlo",
+            "repro_torch.launch.dryrun"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -135,6 +136,17 @@ def test_profile_cli_help_loads_neither_jax_nor_repro():
                  "--group-size", "--kv-bits", "--time-every", "--trace",
                  "--json"):
         assert flag in out, flag
+
+
+def test_dryrun_cli_help_loads_neither_jax_nor_repro():
+    """The dry-run CLI takes the reference's flags and no device flag."""
+    out = _cli_help("repro_torch.launch.dryrun")
+    for flag in ("--arch", "--shape", "--all", "--multi-pod", "--both-meshes",
+                 "--skip-existing", "--out", "--strategy", "--seq-parallel",
+                 "--decode-quant", "--moe-mode", "--zero1", "--tag",
+                 "--ssm-chunk", "--attn-chunk", "--ssm-bf16"):
+        assert flag in out, flag
+    assert "--device" not in out
 
 
 def test_train_cli_help_loads_neither_jax_nor_repro():
